@@ -4,30 +4,43 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit; fails without CUDA.
-2. Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel).
-3. Holds each kernel against its plain PyTorch version at the engine's
-   shapes, in bf16 and fp32, row by row (kubetorch_tpu_torch/ops/
-   tolerance.py), and times kernel, plain version and the nearest single
-   PyTorch call (scaled_dot_product_attention, a yardstick the port never
-   calls) in CUDA graphs beside the card's least time for the same work.
+2. Builds the CUDA kernels from csrc/ through ``_build.load`` (one nvcc per
+   source, all started together) and prints the total build time.
+3. Holds each kernel against its plain PyTorch version, row by row
+   (kubetorch_tpu_torch/ops/tolerance.py), in bf16 and fp32, and times
+   kernel, plain version and the nearest PyTorch call (SDPA, a yardstick
+   the port never calls) in CUDA graphs beside the card's least time for
+   the same work: the flash forward (A1) and flash-decode (B1) at the
+   engine's shapes; A1 with its LSE, dQ (A2) and dK/dV (A3) at the
+   training shape and at head dim 128.
 4. Serves Llama-3-8B at full width (random weights from a seed) through
    GenerationEngine: 8 slots, max_len 2048, greedy, 12 requests with
    prompts over every prefill bucket, admitted while others decode. Checks
    that every request completes, that the flash-prefill and flash-decode
    kernels carried the run, and that the first-token logits of the kernel
    path agree with the plain path (attn_impl="xla").
-5. Prints one JSON line of per-kernel numbers, the card line, and as the
+5. Trains Llama-3.2-1B's shape (LlamaConfig.llama3_1b, full width and
+   depth, bf16, random weights from a seed) with make_train_step and
+   default_optimizer on one batch of 4 x 2048 tokens: warm-up steps, then
+   timed steps. Checks finite, falling losses and that A1, A2 and A3
+   carried every layer of every step; prints tokens/s, ms/step, MFU, peak
+   memory and a 2-step profile. Then holds the kernel path's gradients to
+   the plain path's (fp32, 2 layers) and its loss (bf16, full depth).
+6. Prints one JSON line of per-kernel numbers, the card line, and as the
    last line {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result.
 """
 
 import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -36,6 +49,19 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same source
 ENGINE_PROMPT_LENS = (40, 128, 200, 256, 300, 480, 512, 700, 1000, 1024,
                       1500, 1990)
 MAX_NEW = 32
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attention")
+# training: batch x sequence, warm-up and timed steps, the CE chunk
+TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, TRAIN_CHUNK = 4, 2048, 2, 5, 256
+# kernel-path vs plain-path checks of the training phase:
+# - gradients, fp32 at 1B width, 2 layers, B=1, S=512: per-leaf relative
+#   L2. Both paths compute the same fp32 math (TF32 off); they differ in
+#   the order of the attention sums (1e-6 relative per op), carried back
+#   through two layers;
+# - loss, bf16 at full depth, B=1, S=2048: absolute. The kernel keeps P in
+#   fp32 where the plain attention rounds it to bf16; the per-token CE moves
+#   by a few 1e-3 and the mean over 2,048 tokens averages that down.
+GRAD_REL_L2 = 1e-4
+LOSS_ABS = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -97,6 +123,22 @@ def compare(name, got, want) -> tuple:
     tol = ROW_RTOL[got.dtype]
     print(f"check {name} {got.dtype}: max_abs_err={err} "
           f"max_row_rel_err={rel} row_rtol={tol}", flush=True)
+    if not rel <= tol:
+        fail(f"{name} {got.dtype}: kernel differs from plain version, row "
+             f"relative error {rel} > {tol} (max |diff| {err})")
+    return err, rel
+
+
+def compare_grad(name, got, want) -> tuple:
+    """A gradient against its plain version, per row with the RMS floor
+    (ops/tolerance.py:grad_row_rel_err). Returns (max_abs_err, row err)."""
+    from kubetorch_tpu_torch.ops.tolerance import (ROW_RTOL, grad_row_rel_err,
+                                                   max_abs_err)
+    err, rel = max_abs_err(got, want), grad_row_rel_err(got, want)
+    tol = ROW_RTOL[got.dtype]
+    print(f"check {name} {got.dtype}: max_abs_err={err} "
+          f"max_row_rel_err={rel} row_rtol={tol} (floor: RMS row norm)",
+          flush=True)
     if not rel <= tol:
         fail(f"{name} {got.dtype}: kernel differs from plain version, row "
              f"relative error {rel} > {tol} (max |diff| {err})")
@@ -166,6 +208,111 @@ def check_decode(torch, F, ops_dec):
     return dict(max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                 shape=f"B={b} S={s} NH={nh} NKV={nkv} Hd={hd} bf16")
+
+
+def check_train_kernels(torch, F, ops_attn):
+    """A1 with its LSE, A2 and A3, causal, at the training shape (B=4,
+    S=2048, N=32, NKV=8, Hd=64) and at Hd=128 (B=1, S=1024): bf16 and fp32
+    against the plain versions, then bf16 times. Returns the kernels-line
+    records of the training shape."""
+    from kubetorch_tpu_torch.ops.tolerance import LSE_ATOL
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    recs = {}
+    for b, s, nh, nkv, hd in ((TRAIN_B, TRAIN_S, 32, 8, 64), (1, 1024, 32, 8, 128)):
+        shape = f"B={b} S={s} N={nh} NKV={nkv} Hd={hd}"
+        scale = hd ** -0.5
+        base = [torch.randn(b, s, n, hd, generator=gen, device="cuda")
+                for n in (nh, nkv, nkv, nh)]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (x.to(dtype) for x in base)
+            out, lse = ops_attn._launch(q, k, v, True, scale, need_lse=True)
+            want_out, want_lse = ops_attn.flash_attention_fwd_ref(q, k, v)
+            fwd_err = compare(f"flash_fwd+lse {shape}", out, want_out)[0]
+            lse_err = float((lse - want_lse).abs().max())
+            print(f"check flash_fwd lse {shape} {dtype}: max_abs_err={lse_err} "
+                  f"atol={LSE_ATOL}", flush=True)
+            if not lse_err <= LSE_ATOL:
+                fail(f"flash_fwd lse {shape} {dtype}: {lse_err} > {LSE_ATOL}")
+            del want_out, want_lse
+            delta = ops_attn.attention_delta(out, do)
+            dq = ops_attn.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+            errs["dq"] = compare_grad(f"flash_bwd_dq {shape}", dq,
+                                      ops_attn.flash_attention_bwd_dq_ref(
+                                          q, k, v, do, lse, delta))
+            dk, dv = ops_attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+            want_dk, want_dv = ops_attn.flash_attention_bwd_dkv_ref(
+                q, k, v, do, lse, delta)
+            ek = compare_grad(f"flash_bwd_dk {shape}", dk, want_dk)
+            ev = compare_grad(f"flash_bwd_dv {shape}", dv, want_dv)
+            errs["dkv"] = (max(ek[0], ev[0]), max(ek[1], ev[1]))
+            errs["fwd"] = (fwd_err, lse_err)
+            del dq, dk, dv, want_dk, want_dv
+            torch.cuda.empty_cache()
+        # bf16 times (q, k, v, do, lse, delta are the bf16 ones)
+        t_fwd = time_ms(torch, lambda: ops_attn._launch(q, k, v, True, scale))
+        t_lse = time_ms(torch, lambda: ops_attn._launch(q, k, v, True, scale,
+                                                        need_lse=True))
+        t_dq = time_ms(torch, lambda: ops_attn.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta))
+        t_dkv = time_ms(torch, lambda: ops_attn.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta))
+        p_fwd = time_ms(torch, lambda: ops_attn.flash_attention_fwd_ref(q, k, v))
+        p_dq = time_ms(torch, lambda: ops_attn.flash_attention_bwd_dq_ref(
+            q, k, v, do, lse, delta))
+        p_dkv = time_ms(torch, lambda: ops_attn.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, delta))
+        lib_fwd, lib_bwd = sdpa_times(torch, F, q, k, v, do)
+        pairs = b * nh * s * (s + 1) / 2
+        e = 2   # bf16 bytes
+        qb, kb = b * s * nh * hd * e, b * s * nkv * hd * e
+        stat = b * nh * s * 4
+        work = {"fwd": (2 * qb + 2 * kb + stat, 4 * hd * pairs),
+                "dq": (3 * qb + 2 * kb + 2 * stat, 6 * hd * pairs),
+                "dkv": (2 * qb + 4 * kb + 2 * stat, 8 * hd * pairs)}
+        times = {"fwd": (t_lse, p_fwd, lib_fwd), "dq": (t_dq, p_dq, lib_bwd),
+                 "dkv": (t_dkv, p_dkv, lib_bwd)}
+        lib_name = {"fwd": "SDPA forward", "dq": "SDPA backward, dQ dK dV",
+                    "dkv": "SDPA backward, dQ dK dV"}
+        for name, (nbytes, flops) in work.items():
+            b_ms, b_by = bound(nbytes, flops)
+            ms, plain, lib = times[name]
+            print(f"kernel flash_{name} {shape} bf16 causal: ms={ms} "
+                  f"plain_ms={plain} library_ms={lib} ({lib_name[name]}) "
+                  f"bound_ms={b_ms} "
+                  f"({b_by}; {nbytes} bytes, {flops} flops)", flush=True)
+            if hd == 64:
+                recs[name] = dict(max_abs_err=errs[name][0], ms=ms,
+                                  plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=lib, bytes=nbytes, flops=flops,
+                                  shape=f"{shape} bf16 causal")
+        print(f"kernel flash_fwd {shape} bf16 causal: ms_without_lse={t_fwd} "
+              f"ms_with_lse={t_lse}", flush=True)
+        if hd == 64:
+            recs["fwd"]["ms_without_lse"] = t_fwd
+            recs["fwd"]["max_abs_err_lse"] = errs["fwd"][1]
+        del q, k, v, do, lse, delta, base
+        torch.cuda.empty_cache()
+    return recs
+
+
+def sdpa_times(torch, F, q, k, v, do):
+    """SDPA's forward, and its backward as autograd of SDPA less its
+    forward (dQ, dK and dV together): the library yardsticks for A1 and for
+    A2/A3, on the same inputs (head-major views)."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        t_fwd = time_ms(torch, fwd)
+    return t_fwd, time_ms(torch, fwd_bwd) - t_fwd
 
 
 def drive_engine(torch, ops_attn, ops_dec, card):
@@ -275,22 +422,28 @@ def drive_engine(torch, ops_attn, ops_dec, card):
 def profile_decode(torch, eng, prompts) -> None:
     """Where a decode step's time goes: torch.profiler over 4 steps of a
     full grid (8 slots), after every count above was read."""
-    from torch.profiler import ProfilerActivity, profile
-
     hs = [eng.submit(p[:40], max_new_tokens=8) for p in prompts[:eng.slots]]
     eng.step()                          # admissions + one decode step
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(4):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
+    profile_steps(torch, "4 decode steps, 8 slots", eng.step, 4)
     while eng.step():
         pass
     for h in hs:
         h.result(timeout=0)
+
+
+def profile_steps(torch, label, run, n) -> None:
+    """torch.profiler over ``n`` calls of ``run``: wall and device-busy ms
+    per step, the busy share, and the top device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -304,13 +457,134 @@ def profile_decode(torch, eng, prompts) -> None:
         print("profile: the profiler recorded no device time (not measured)",
               flush=True)
         return
-    print(f"profile: 4 decode steps, 8 slots: wall_ms_per_step="
-          f"{wall_us / 4e3} device_busy_ms_per_step={busy_us / 4e3} "
+    print(f"profile: {label}: wall_ms_per_step="
+          f"{wall_us / n / 1e3} device_busy_ms_per_step={busy_us / n / 1e3} "
           f"device_busy_share={busy_us / wall_us}", flush=True)
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
-        print(f"profile: {dev_us(e) / 4e3:.4f} ms/step "
-              f"({dev_us(e) / busy_us:.3f} of busy) x{e.count // 4}/step "
+        print(f"profile: {dev_us(e) / n / 1e3:.4f} ms/step "
+              f"({dev_us(e) / busy_us:.3f} of busy) x{e.count // n}/step "
               f"{e.key[:90]}", flush=True)
+
+
+def drive_training(torch, ops_attn, card):
+    """Llama-3.2-1B's shape, full width and depth, bf16, through
+    make_train_step: warm-up steps, then timed steps with the launch
+    counts set to 0 just before and read just after."""
+    from kubetorch_tpu_torch.models.llama import (LlamaConfig, llama_init,
+                                                  llama_loss_chunked)
+    from kubetorch_tpu_torch.train import (default_optimizer,
+                                           init_train_state, make_train_step)
+
+    cfg = LlamaConfig.llama3_1b(max_seq_len=TRAIN_S)
+    t0 = time.perf_counter()
+    params = llama_init(cfg, seed=0, device="cuda")
+    opt = default_optimizer(warmup_steps=2)
+    state = init_train_state(params, opt)
+    del params
+    torch.cuda.synchronize()
+    print(f"train: Llama-3.2-1B shape, params {cfg.param_count()}, state "
+          f"initialised in {time.perf_counter() - t0:.2f}s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; remat "
+          f"{'dots' if cfg.remat else 'none'}", flush=True)
+    step = make_train_step(
+        lambda p, t, y: llama_loss_chunked(p, t, y, cfg, chunk=TRAIN_CHUNK), opt)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "targets": tokens.roll(-1, 1)}
+    losses, norms = [], []
+    for _ in range(TRAIN_WARM):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+
+    ops_attn.flash_attention.launches = 0
+    ops_attn.flash_attention.bwd_dq_launches = 0
+    ops_attn.flash_attention.bwd_dkv_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = (ops_attn.flash_attention.launches,
+              ops_attn.flash_attention.bwd_dq_launches,
+              ops_attn.flash_attention.bwd_dkv_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    print(f"train: losses {losses} grad_norms {norms}", flush=True)
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"train: a loss or grad norm is not finite: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: loss did not fall: first {losses[0]}, last {losses[-1]}")
+    L = cfg.n_layers
+    want = (2 * L * TRAIN_STEPS, L * TRAIN_STEPS, L * TRAIN_STEPS)
+    if counts != want:
+        fail(f"train: launches (A1, A2, A3) {counts} over {TRAIN_STEPS} steps, "
+             f"expected {want}: {L} layers, the forward twice under 'dots' remat")
+    tps = TRAIN_B * TRAIN_S * TRAIN_STEPS / dt
+    model_flops = 6 * cfg.param_count() + 12 * L * cfg.dim * TRAIN_S
+    mfu = tps * model_flops / BF16_FLOPS_PER_S
+    print(f"train: launches A1 {counts[0]} A2 {counts[1]} A3 {counts[2]} over "
+          f"{TRAIN_STEPS} steps of {L} layers", flush=True)
+    print(f"train: tokens_per_s={tps} ms_per_step={dt / TRAIN_STEPS * 1e3} "
+          f"mfu={mfu} (6P + 12*L*D*S flops per token over 989 TFLOP/s) "
+          f"peak_memory_gb={peak_gb} batch={TRAIN_B}x{TRAIN_S} card={card}",
+          flush=True)
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    profile_steps(torch, f"2 train steps, batch {TRAIN_B}x{TRAIN_S}", one_step, 2)
+    check_train_paths(torch, cfg, state.params, tokens)
+    return counts, dict(tokens_per_s=tps, mfu=mfu, peak_memory_gb=peak_gb,
+                        ms_per_step=dt / TRAIN_STEPS * 1e3)
+
+
+def check_train_paths(torch, cfg, params, tokens):
+    """Kernel path (attn_impl auto) against the plain path (xla): gradients
+    in fp32 at 1B width with 2 layers, and the loss in bf16 at full depth."""
+    from kubetorch_tpu_torch.models.llama import llama_init, llama_loss_chunked
+    from kubetorch_tpu_torch.train import make_train_step
+    from kubetorch_tpu_torch.train.optim import tree_leaves
+
+    tok = tokens[:1]
+    batch = {"tokens": tok[:, :512], "targets": tok.roll(-1, 1)[:, :512]}
+    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                                max_seq_len=512)
+    small_params = llama_init(small, seed=3, device="cuda")
+    grads = {}
+    for impl in ("auto", "xla"):
+        c = dataclasses.replace(small, attn_impl=impl)
+        step = make_train_step(
+            lambda p, t, y: llama_loss_chunked(p, t, y, c, chunk=TRAIN_CHUNK))
+        _, grads[impl] = step.loss_and_grads(small_params, batch)
+    worst = max(float((a - b).norm() / b.norm())
+                for a, b in zip(tree_leaves(grads["auto"]),
+                                tree_leaves(grads["xla"])))
+    print(f"train: grads kernel vs plain path, fp32, 2 layers, S=512: max "
+          f"per-leaf rel_l2={worst} tol={GRAD_REL_L2}", flush=True)
+    if not worst <= GRAD_REL_L2:
+        fail(f"train: kernel-path grads differ from the plain path: {worst}")
+    del grads, small_params
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        loss = {impl: float(llama_loss_chunked(
+            params, tok, tok.roll(-1, 1), dataclasses.replace(cfg, attn_impl=impl),
+            chunk=TRAIN_CHUNK)) for impl in ("auto", "xla")}
+    diff = abs(loss["auto"] - loss["xla"])
+    print(f"train: loss kernel vs plain path, bf16, {cfg.n_layers} layers, "
+          f"B=1 S={tok.shape[1]}: {loss['auto']} vs {loss['xla']}, |diff|="
+          f"{diff} tol={LOSS_ABS}", flush=True)
+    if not (math.isfinite(diff) and diff <= LOSS_ABS):
+        fail(f"train: kernel-path loss differs from the plain path by {diff}")
 
 
 def main() -> None:
@@ -334,22 +608,38 @@ def main() -> None:
           flush=True)
 
     t0 = time.perf_counter()
-    _build.build_all(["flash_fwd", "decode_attention"])
-    print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:
+        list(ex.map(_build.load, SOURCES))
+    print(f"build: {time.perf_counter() - t0:.1f}s for {len(SOURCES)} sources",
+          flush=True)
 
     flash = check_flash(torch, F, ops_attn)
     dec = check_decode(torch, F, ops_dec)
+    train_k = check_train_kernels(torch, F, ops_attn)
     flash_n, decode_n = drive_engine(torch, ops_attn, ops_dec, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_n, train = drive_training(torch, ops_attn, card)
 
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_fwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:44",
-             launches=flash_n, **flash),
+             launches=train_n[0], path="training (forward with LSE, and "
+             "again under remat)", **train_k["fwd"],
+             serving=dict(launches=flash_n, **flash)),
         dict(name="decode_attention", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
-             launches=decode_n, **dec),
+             launches=decode_n, path="serving", **dec),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
+             replaces="kubetorch_tpu/ops/attention.py:140",
+             launches=train_n[1], path="training", **train_k["dq"]),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
+             replaces="kubetorch_tpu/ops/attention.py:180",
+             launches=train_n[2], path="training", **train_k["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,10 +1,13 @@
-// FlashAttention-2 forward for Hopper (sm_90a), inference only.
+// FlashAttention-2 forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel kubetorch_tpu/ops/attention.py:_fwd_kernel
 // (launched by _fwd, public flash_attention). Same function: causal (or
 // full) attention with an online softmax and fp32 accumulators, GQA through
 // kv-head h*NKV/N, whole K/V tiles above the diagonal skipped and the
-// diagonal tile masked with -1e30, fully masked rows written as 0.
+// diagonal tile masked with -1e30, fully masked rows written as 0. With a
+// non-null `lse` it also writes each row's log-sum-exp m + log(l) (the
+// residual the backward kernels in flash_bwd.cu recompute P from), as the
+// Pallas kernel does with need_lse; a null `lse` writes nothing more.
 // Numerics follow the Pallas body: q, k and v are widened to fp32 and both
 // products (Q.K^T and P.V) run in fp32, so P is never rounded to bf16.
 //
@@ -20,7 +23,8 @@
 // wgmma/TMA and a tensor-core P.V are later work.
 //
 // Layout: q (B, S, N, Hd), k/v (B, S, NKV, Hd), out (B, S, N, Hd), read and
-// written in place through their strides (no head-major copy). C interface,
+// written in place through their strides (no head-major copy); lse fp32
+// (B, N, S), contiguous. C interface,
 // launched on the caller's stream; returns the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
@@ -47,6 +51,7 @@ struct FwdParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, N, S) or null
   int S, N, NKV;
   long long qs[3], ks[3], vs[3], os[3];  // element strides of (b, s, head)
   float scale;
@@ -199,6 +204,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdParams p) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       o[(long long)row * p.os[1] + tx * CPT + c] = from_f<T>(acc[i][c] / l_safe);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.N + h) * S + row] = m[i] + logf(l_safe);
   }
 }
 
@@ -218,9 +225,10 @@ cudaError_t launch(const FwdParams& p, int B, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: q, k, v, out element strides
-// of (b, s, head), 12 values. Head dim 16, 32, 64 or 128.
+// of (b, s, head), 12 values. Head dim 16, 32, 64 or 128. lse: fp32
+// (B, N, S) contiguous, or null to write none.
 extern "C" int kt_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                            int dtype, int B, int S, int N, int NKV, int HD,
+                            float* lse, int dtype, int B, int S, int N, int NKV, int HD,
                             const long long* strides, float scale, int causal,
                             void* stream) {
   FwdParams p;
@@ -228,6 +236,7 @@ extern "C" int kt_flash_fwd(const void* q, const void* k, const void* v, void* o
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.S = S;
   p.N = N;
   p.NKV = NKV;

@@ -1,14 +1,15 @@
-"""Llama-3-family decoder in PyTorch, the inference half of
-``kubetorch_tpu/models/llama.py``.
+"""Llama-3-family decoder in PyTorch, the counterpart of
+``kubetorch_tpu/models/llama.py``: forward, losses and their gradient.
 
 Same parameter layout as the JAX model: every layer's weights are one
 tensor with a leading ``(L, ...)`` dim, so a JAX param tree loads as it is
 (``models.convert.params_from_numpy``). bf16 on the matmul path, fp32 for
 norms, RoPE and softmax accumulation, fp32 logits.
 
-Attention dispatches to the hand-written flash kernel (``ops.attention``)
-on CUDA and to the plain version on the CPU. Training (remat policies, the
-losses, the flash backward) is not ported yet.
+Attention dispatches to the hand-written flash kernels (``ops.attention``:
+forward, and dQ / dK-dV in the backward) on CUDA and to the plain version
+on the CPU. Under grad mode each layer is rematerialized per
+``cfg.remat_policy`` (``models/common.py``), as the JAX scan body is.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
+from .common import checkpointed
 from .common import config_from_dict as _config_from_dict
-from .common import resolve_device
+from .common import nothing_saveable, resolve_device, resolve_remat_policy
 
 
 @dataclass(frozen=True)
@@ -35,6 +38,11 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
+    remat: bool = True
+    # Named remat policy for each layer under grad mode: "none" | "dots" |
+    # "nothing_saveable" | a selective-checkpoint policy callable
+    # (models/common.py). None keeps the JAX default: remat=True → "dots".
+    remat_policy: Any = None
     # auto | xla | flash. auto: the flash kernel on CUDA, the plain
     # attention on the CPU. "xla" keeps the JAX package's name for the
     # plain einsum attention so configs carry over unchanged.
@@ -212,20 +220,90 @@ def layer_weights(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
 
 def llama_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                  cfg: LlamaConfig) -> torch.Tensor:
-    """tokens (B, S) → final hidden states (B, S, D)."""
+    """tokens (B, S) → final hidden states (B, S, D).
+
+    Under grad mode each layer runs inside a checkpoint with the config's
+    remat policy, and each stacked leaf is unbound once before the loop:
+    indexing ``w[i]`` per layer would give every layer's backward a
+    zero-filled gradient of the whole (L, ...) leaf to add into."""
     x = params["embed"][tokens].to(cfg.dtype)
     freqs = rope_freqs(cfg, tokens.shape[1], device=tokens.device)
+    if not torch.is_grad_enabled():
+        for i in range(cfg.n_layers):
+            x = _layer(cfg, x, layer_weights(params, i), freqs)
+        return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    policy = cfg.remat_policy
+    if policy is None:
+        policy = "dots" if cfg.remat else "none"
+    layer = checkpointed(lambda x, lw: _layer(cfg, x, lw, freqs),
+                         resolve_remat_policy(policy))
+    per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
     for i in range(cfg.n_layers):
-        x = _layer(cfg, x, layer_weights(params, i), freqs)
+        x = layer(x, {name: ws[i] for name, ws in per_layer.items()})
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _logits(params: Dict[str, Any], tokens: torch.Tensor,
+            cfg: LlamaConfig) -> torch.Tensor:
+    x = llama_hidden(params, tokens, cfg)
+    return (x @ params["lm_head"].to(cfg.dtype)).float()
 
 
 @torch.no_grad()
 def llama_forward(params: Dict[str, Any], tokens: torch.Tensor,
                   cfg: LlamaConfig) -> torch.Tensor:
     """tokens (B, S) int → logits (B, S, V) fp32."""
+    return _logits(params, tokens, cfg)
+
+
+def llama_loss(params: Dict[str, Any], tokens: torch.Tensor,
+               targets: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross-entropy, fp32 log-softmax, mean over all positions."""
+    logp = F.log_softmax(_logits(params, tokens, cfg), dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -ll.mean()
+
+
+def _chunk_loss(h: torch.Tensor, t: torch.Tensor, m: torch.Tensor,
+                head: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax((h @ head).float(), dim=-1)       # (B, C, V)
+    ll = torch.gather(logp, -1, t[..., None])[..., 0]
+    return (ll * m).sum()
+
+
+def chunked_ce(x: torch.Tensor, targets: torch.Tensor, head: torch.Tensor,
+               chunk: int = 256) -> torch.Tensor:
+    """Cross-entropy over hidden states without the (B, S, V) logits: the
+    LM head and log-softmax run per sequence chunk, each chunk checkpointed
+    under grad mode, so the peak is one (B, chunk, V) fp32 block and the
+    backward recomputes each chunk's logits. A sequence that does not
+    divide the chunk is padded and masked, never cut into smaller chunks."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    targets = targets.long()
+    mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    loss_of = _chunk_loss
+    if torch.is_grad_enabled():
+        loss_of = checkpointed(_chunk_loss, nothing_saveable)
+    # one split per tensor: its backward is one concatenation of the
+    # chunks' grads, not a full-size zero tensor per chunk
+    total = sum(loss_of(h, t, m, head) for h, t, m in
+                zip(x.split(chunk, 1), targets.split(chunk, 1), mask.split(chunk, 1)))
+    return -total / (b * s)
+
+
+def llama_loss_chunked(params: Dict[str, Any], tokens: torch.Tensor,
+                       targets: torch.Tensor, cfg: LlamaConfig,
+                       chunk: int = 256) -> torch.Tensor:
+    """Next-token CE without materializing (B, S, V) logits (see
+    :func:`chunked_ce`)."""
     x = llama_hidden(params, tokens, cfg)
-    return (x @ params["lm_head"].to(cfg.dtype)).float()
+    return chunked_ce(x, targets, params["lm_head"].to(cfg.dtype), chunk)
 
 
 def config_from_dict(d: Dict) -> LlamaConfig:

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``kubetorch_tpu_torch/_build/`` under a name keyed by
 a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. The build runs at first use, never at import.
-No ``nvcc`` or a failed build raises: there is no fallback.
+unchanged one loads at once. The build runs at first use, never at import;
+``load`` is the one entry, and callers that need several libraries at once
+(``chip_smoke.py``) call it from several threads, one ``nvcc`` each. No
+``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -17,9 +19,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -77,21 +78,16 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all(names: Iterable[str]) -> List[Path]:
-    """Build several sources at once, one ``nvcc`` each, so that a caller
-    that needs them all (``chip_smoke.py``) waits for the slowest compile
-    rather than for their sum. ``load`` builds one on first use."""
-    names = list(names)
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
-        return list(ex.map(build, names))
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed. Callers declare ``argtypes``/``restype`` on what they use."""
+    needed. Callers declare ``argtypes``/``restype`` on what they use.
+    Builds of different sources run concurrently; ``build`` renames a
+    finished library into place, so a race on one source is harmless."""
     with _lock:
         lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _libs[name] = lib
+    if lib is not None:
         return lib
+    path = build(name)
+    with _lock:
+        lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
+    return lib

@@ -10,7 +10,9 @@ P.V product, as in the Pallas body. The int8-cache form is not ported yet.
 
 ``decode_attention`` launches the kernel for CUDA tensors and uses the
 plain version only for CPU tensors. ``decode_attention.launches`` counts
-kernel launches.
+kernel launches. It has no gradient (the Pallas kernel has no VJP either):
+an input that requires grad under grad mode raises rather than return an
+output cut from the graph.
 """
 
 from __future__ import annotations
@@ -100,6 +102,11 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         raise ValueError(f"GQA requires n_kv | n_heads, got {ck.shape[2]}, {nh}")
     if pos.shape != (b,):
         raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
+    if torch.is_grad_enabled() and (q.requires_grad or ck.requires_grad
+                                    or cv.requires_grad):
+        raise RuntimeError("decode_attention has no gradient; call it under "
+                           "torch.no_grad() or on tensors that do not "
+                           "require grad")
     if scale is None:
         scale = hd ** -0.5
     if q.device.type == "cpu":

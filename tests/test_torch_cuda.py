@@ -8,19 +8,44 @@ runs on a machine that has only PyTorch:
 
 Tolerances are per row, relative to the row's own norm
 (``kubetorch_tpu_torch/ops/tolerance.py`` gives the reasons): 1e-4 for
-fp32, 1e-2 for bf16.
+fp32, 1e-2 for bf16; gradient rows floored at the RMS row norm; LSE 1e-4
+absolute. The train step on the card against the same step on the CPU
+(fp32, TF32 off), three steps: losses 1e-5 relative; each leaf's change
+from its initial value 1e-2 relative in L2. Adam's step m / (sqrt(v) + eps)
+is about lr in size whatever the grad's, so an entry whose grad is
+rounding noise can step either way on the two devices (on an H100, one of
+16,384 wq entries ended 3.1e-5 apart, against steps of ~1.5e-4); such
+outliers weigh ~1e-3 of a leaf's change, a wrong update rule all of it.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
-from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
-from kubetorch_tpu_torch.ops.attention import (flash_attention,
+from kubetorch_tpu_torch.models import common
+from kubetorch_tpu_torch.models.llama import (LlamaConfig, llama_init,
+                                              llama_loss_chunked)
+from kubetorch_tpu_torch.ops.attention import (attention_delta,
+                                               flash_attention,
+                                               flash_attention_bwd_dkv,
+                                               flash_attention_bwd_dkv_ref,
+                                               flash_attention_bwd_dq,
+                                               flash_attention_bwd_dq_ref,
+                                               flash_attention_bwd_ref,
+                                               flash_attention_fwd_ref,
                                                flash_attention_ref)
 from kubetorch_tpu_torch.ops.decode_attention import (decode_attention,
                                                       decode_attention_ref)
-from kubetorch_tpu_torch.ops.tolerance import ROW_RTOL, row_rel_err
+from kubetorch_tpu_torch.ops.tolerance import (LSE_ATOL, ROW_RTOL,
+                                               grad_row_rel_err, row_rel_err)
 from kubetorch_tpu_torch.serve import GenerationEngine
+from kubetorch_tpu_torch.train import (default_optimizer, init_train_state,
+                                       make_train_step)
+from kubetorch_tpu_torch.train.optim import tree_leaves, tree_map
+
+TOL_STEP_LOSS = 1e-5
+TOL_STEP_UPDATE = 1e-2
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +54,14 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _counts():
+    return (flash_attention.launches, flash_attention.bwd_dq_launches,
+            flash_attention.bwd_dkv_launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -117,3 +149,153 @@ def test_engine_kernel_path_matches_plain_path(cuda):
             pass
         outs.append([h.result(timeout=0) for h in hs])
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# training: A1 with LSE, A2 (dQ), A3 (dK/dV), the autograd Function
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = [(2, 128, 32, 8, 64, True), (1, 200, 8, 2, 128, True),
+              (2, 256, 4, 4, 64, False), (1, 130, 8, 1, 128, False),
+              (1, 1024, 32, 8, 128, True)]
+
+
+def _bwd_inputs(cuda, dtype, b, s, nh, nkv, hd, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, s, nh, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, s, nkv, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, s, nkv, hd, generator=g, device=cuda).to(dtype)
+    do = torch.randn(b, s, nh, hd, generator=g, device=cuda).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,nkv,hd,causal", BWD_SHAPES)
+def test_flash_lse_matches_plain(cuda, dtype, b, s, nh, nkv, hd, causal):
+    from kubetorch_tpu_torch.ops.attention import _launch
+    q, k, v, _ = _bwd_inputs(cuda, dtype, b, s, nh, nkv, hd)
+    out, lse = _launch(q, k, v, causal, hd ** -0.5, need_lse=True)
+    want_out, want_lse = flash_attention_fwd_ref(q, k, v, causal=causal)
+    assert lse.shape == (b, nh, s) and lse.dtype == torch.float32
+    assert float((lse - want_lse).abs().max()) <= LSE_ATOL
+    assert row_rel_err(out, want_out) <= ROW_RTOL[dtype]
+    # the no-LSE launch writes the same output
+    assert torch.equal(_launch(q, k, v, causal, hd ** -0.5)[0], out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,nkv,hd,causal", BWD_SHAPES)
+def test_bwd_kernels_match_plain(cuda, dtype, b, s, nh, nkv, hd, causal):
+    q, k, v, do = _bwd_inputs(cuda, dtype, b, s, nh, nkv, hd, seed=1)
+    out, lse = flash_attention_fwd_ref(q, k, v, causal=causal)
+    delta = attention_delta(out, do)
+    before = _counts()
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2] + 1)
+    want_dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal)
+    want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   causal=causal)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert grad_row_rel_err(got, want) <= ROW_RTOL[dtype]
+
+
+def test_bwd_kernels_read_strided_inputs(cuda):
+    """q/k/v as views into one fused (B, S, N+2NKV, Hd) projection and dO a
+    slice of a wider tensor."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(2, 192, 12, 64, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:12]
+    do = torch.randn(2, 192, 16, 64, generator=g, device=cuda).bfloat16()[:, :, 4:12]
+    out, lse = flash_attention_fwd_ref(q, k, v)
+    delta = attention_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for got, w in zip((dq, dk, dv), want):
+        assert grad_row_rel_err(got, w) <= ROW_RTOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_has_a_gradient(cuda, dtype):
+    """A CUDA output of inputs that require grad keeps its grad_fn, and its
+    gradient comes from A2/A3 and matches the plain backward."""
+    q, k, v, do = _bwd_inputs(cuda, dtype, 2, 160, 8, 2, 64, seed=4)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = _counts()
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    want_out, lse = flash_attention_fwd_ref(q.detach(), k.detach(), v.detach())
+    want = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), want_out,
+                                   lse, do)
+    assert row_rel_err(out.detach(), want_out) <= ROW_RTOL[dtype]
+    for t, w in zip((q, k, v), want):
+        assert grad_row_rel_err(t.grad, w) <= ROW_RTOL[dtype]
+
+
+def test_decode_attention_raises_on_inputs_that_require_grad(cuda):
+    q = torch.zeros(2, 4, 64, device=cuda, requires_grad=True)
+    ck = torch.zeros(2, 64, 2, 64, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        decode_attention(q, ck, ck, pos)
+    with torch.no_grad():
+        assert decode_attention(q, ck, ck, pos).shape == (2, 4, 64)
+
+
+def _tiny_batch(device):
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 512, (4, 96), generator=g)
+    return {"tokens": tokens.to(device), "targets": tokens.roll(-1, 1).to(device)}
+
+
+@pytest.mark.parametrize("policy", common.REMAT_POLICY_NAMES)
+def test_remat_policies_on_the_card(cuda, policy):
+    """Launch counts per policy (the forward kernel re-runs when the layer
+    is recomputed) and gradients equal to no remat."""
+    cfg = LlamaConfig.tiny(dtype=torch.float32, remat_policy="none")
+    params = llama_init(cfg, seed=2, device=cuda)
+    batch = _tiny_batch(cuda)
+    grads = {}
+    for name in ("none", policy):
+        c = dataclasses.replace(cfg, remat_policy=name)
+        step = make_train_step(lambda p, t, y: llama_loss_chunked(p, t, y, c, 32))
+        before = _counts()
+        _, grads[name] = step.loss_and_grads(params, batch)
+        torch.cuda.synchronize()
+        n = cfg.n_layers
+        fwd = n if name == "none" else 2 * n
+        assert _counts() == (before[0] + fwd, before[1] + n, before[2] + n)
+    for a, b in zip(tree_leaves(grads[policy]), tree_leaves(grads["none"])):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """tiny in fp32: three steps of make_train_step through the kernels
+    against the same steps through the plain versions on the CPU."""
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    init = llama_init(cfg, seed=6, device="cpu")
+    results = []
+    for device in ("cpu", cuda):
+        # a copy on each device: the step donates (updates in place)
+        params = tree_map(lambda t: t.to(device, copy=True), init)
+        opt = default_optimizer(warmup_steps=2)
+        state = init_train_state(params, opt)
+        step = make_train_step(lambda p, t, y: llama_loss_chunked(p, t, y, cfg, 32),
+                               opt)
+        batch = _tiny_batch(device)
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        results.append((losses, tree_map(lambda t: t.cpu(), state.params)))
+    (cpu_l, cpu_p), (gpu_l, gpu_p) = results
+    for a, b in zip(gpu_l, cpu_l):
+        assert abs(a - b) <= TOL_STEP_LOSS * abs(b)
+    for a, b, p0 in zip(tree_leaves(gpu_p), tree_leaves(cpu_p), tree_leaves(init)):
+        assert float((a - b).norm() / (b - p0).norm()) <= TOL_STEP_UPDATE
