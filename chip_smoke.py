@@ -8,25 +8,37 @@
    source, all started together) and prints the total build time.
 3. Holds each kernel against its plain PyTorch version, row by row
    (kubetorch_tpu_torch/ops/tolerance.py), in bf16 and fp32, and times
-   kernel, plain version and the nearest PyTorch call (SDPA, a yardstick
-   the port never calls) in CUDA graphs beside the card's least time for
-   the same work: the flash forward (A1) and flash-decode (B1) at the
-   engine's shapes; A1 with its LSE, dQ (A2) and dK/dV (A3) at the
-   training shape and at head dim 128.
+   kernel, plain version and the nearest PyTorch call (SDPA or a cuBLAS
+   matmul, a yardstick the port never calls) in CUDA graphs beside the
+   card's least time for the same work: the flash forward (A1) and
+   flash-decode (B1) at the engine's shapes; the int8 flash-decode (B2) at
+   the same grid; the int4 matmul (B3) at Llama-3-8B's projections, 8
+   decode rows, a ragged 300 and a 2048-row prefill; A1 with its LSE, dQ
+   (A2) and dK/dV (A3) at the training shape and at head dim 128.
 4. Serves Llama-3-8B at full width (random weights from a seed) through
    GenerationEngine: 8 slots, max_len 2048, greedy, 12 requests with
    prompts over every prefill bucket, admitted while others decode. Checks
    that every request completes, that the flash-prefill and flash-decode
    kernels carried the run, and that the first-token logits of the kernel
    path agree with the plain path (attn_impl="xla").
-5. Trains Llama-3.2-1B's shape (LlamaConfig.llama3_1b, full width and
+5. Serves Llama-3-8B again, full width and depth, quantized: int4 weights
+   (group 128, llama_init_quantized) and an int8 KV cache
+   (quantize_kv=True), the same warm-up and 12 requests. Checks that every
+   request completes, that A1, B3 and B2 carried the run with exact launch
+   counts (B1 none), that the first-token logits agree with the same
+   weights dequantized to bf16 on the plain path, and that one decode
+   step's logits agree between B2 and the plain int8 einsum from the same
+   grid state, with B2's output in every layer of that step held per row
+   to the plain einsum on the engine's own arguments; prints decode
+   tokens/s, TTFT, weight and cache GB and a decode profile.
+6. Trains Llama-3.2-1B's shape (LlamaConfig.llama3_1b, full width and
    depth, bf16, random weights from a seed) with make_train_step and
    default_optimizer on one batch of 4 x 2048 tokens: warm-up steps, then
    timed steps. Checks finite, falling losses and that A1, A2 and A3
    carried every layer of every step; prints tokens/s, ms/step, MFU, peak
    memory and a 2-step profile. Then holds the kernel path's gradients to
    the plain path's (fp32, 2 layers) and its loss (bf16, full depth).
-6. Prints one JSON line of per-kernel numbers, the card line, and as the
+7. Prints one JSON line of per-kernel numbers, the card line, and as the
    last line {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result.
@@ -34,6 +46,7 @@ Any failed phase exits non-zero and prints no result.
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -46,10 +59,11 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same source
+L2_BYTES = 50e6                # H100 L2 cache, same source
 ENGINE_PROMPT_LENS = (40, 128, 200, 256, 300, 480, 512, 700, 1000, 1024,
                       1500, 1990)
 MAX_NEW = 32
-SOURCES = ("flash_fwd", "flash_bwd", "decode_attention")
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "quant_matmul")
 # training: batch x sequence, warm-up and timed steps, the CE chunk
 TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, TRAIN_CHUNK = 4, 2048, 2, 5, 256
 # kernel-path vs plain-path checks of the training phase:
@@ -62,6 +76,35 @@ TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, TRAIN_CHUNK = 4, 2048, 2, 5, 256
 #   by a few 1e-3 and the mean over 2,048 tokens averages that down.
 GRAD_REL_L2 = 1e-4
 LOSS_ABS = 2e-2
+# kernel path vs plain path of the bf16 engines, first-token logits,
+# relative L2: the two differ in attention numerics (fp32 P in the flash
+# kernel, P rounded to bf16 in the plain cached attention) and then run
+# the same bf16 layers; 32 layers of bf16 rounding keep the logits within
+# a few percent of each other. The int4 engine's plain path also reads the
+# weights rounded to bf16 (q * s in bf16, 2^-9 relative per weight) where
+# B3 scales in fp32: a further ~1e-3 of the norm.
+LOGITS_REL_L2 = 5e-2
+# one int4 + int8-KV decode step, B2 vs the plain int8 einsum from the same
+# grid state, relative L2 of the logits: both compute the same fp32
+# attention and differ only in the order of its sums (~1e-6 relative),
+# but where an activation sits near a bf16 rounding edge that becomes one
+# 2^-8 step of one element, and 32 random-weight bf16 layers amplify such
+# steps towards the few-percent floor of the first-token check (seeded
+# inputs and deterministic kernels: an H100 reads 1.31e-2 in every run).
+# At that floor the logits cannot tell a fault in how the engine hands
+# its grid to B2 from rounding, so the same step also holds B2's output in
+# every layer to the plain einsum on the very views the engine passed
+# (layer slices of the grid, their strides, positions, scales), per row
+# at ops/tolerance.py's ROW_RTOL, with q in bf16 as served and in fp32
+DECODE_STEP_REL_L2 = 2e-2
+# B3 at Llama-3-8B's shapes: (M, K, N), the four projection shapes at 8
+# decode rows (the 16-row tile), a ragged 300 and each at a 2048-row
+# prefill bucket but (4096, 4096), which the 300 rows cover (the 64-row
+# tile)
+Q4_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
+             (8, 14336, 4096), (300, 4096, 4096), (2048, 4096, 1024),
+             (2048, 4096, 14336), (2048, 14336, 4096))
+Q4_GROUP = 128
 
 
 def fail(msg: str) -> None:
@@ -102,6 +145,22 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     end.synchronize()
     ms = start.elapsed_time(end) / (iters * reps)
     del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_cold_ms(torch, fn, inputs) -> float:
+    """:func:`time_ms` of ``fn(*inputs)`` with the inputs cold in L2, as a
+    caller that streams other data between calls finds them (the engine's
+    decode step reads 3.7 GB of weights): the captured calls cycle through
+    copies of the inputs that together hold 4x the L2's bytes, so each call
+    reads what the calls before it evicted."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    n = max(2, math.ceil(4 * L2_BYTES / nbytes))
+    copies = itertools.cycle([tuple(t.clone() for t in inputs)
+                              for _ in range(n)])
+    ms = time_ms(torch, lambda: fn(*next(copies)), iters=n)
+    del copies
     torch.cuda.empty_cache()
     return ms
 
@@ -208,6 +267,105 @@ def check_decode(torch, F, ops_dec):
     return dict(max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                 shape=f"B={b} S={s} NH={nh} NKV={nkv} Hd={hd} bf16")
+
+
+def check_decode_quant(torch, F, ops_dec):
+    """B2 at the engine's int8 grid: B=8, S=2048, NKV=8, NH=32, Hd=128, B1's
+    positions; q in fp32 and bf16 against the plain version, then bf16
+    times. Library: SDPA with a boolean mask over the K/V dequantized to
+    bf16 (outside the timing)."""
+    from kubetorch_tpu_torch.serve import dequantize_rows, quantize_rows
+    b, s, nh, nkv, hd = 8, 2048, 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(b, nh, hd, generator=gen, device="cuda")
+    kq, ks = quantize_rows(torch.randn(b, s, nkv, hd, generator=gen, device="cuda"))
+    vq, vs = quantize_rows(torch.randn(b, s, nkv, hd, generator=gen, device="cuda"))
+    pos_list = [0, 63, 64, 700, 1024, 1500, 2000, s - 1]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q = q.to(dtype)
+        got = ops_dec.decode_attention_quant(q, kq, ks, vq, vs, pos)
+        want = ops_dec.decode_attention_quant_ref(q, kq, ks, vq, vs, pos)
+        err, rel = compare("decode_attention_quant", got, want)
+    ms = time_ms(torch, lambda: ops_dec.decode_attention_quant(
+        q, kq, ks, vq, vs, pos))
+    plain = time_ms(torch, lambda: ops_dec.decode_attention_quant_ref(
+        q, kq, ks, vq, vs, pos))
+    mask = (torch.arange(s, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+    kt = dequantize_rows(kq, ks).bfloat16().transpose(1, 2)
+    vt = dequantize_rows(vq, vs).bfloat16().transpose(1, 2)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True))
+    ms_cold = time_cold_ms(torch, ops_dec.decode_attention_quant,
+                           (q, kq, ks, vq, vs, pos))
+    lib_cold = time_cold_ms(
+        torch, lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_[:, :, None], k_, v_, attn_mask=mask, enable_gqa=True),
+        (q, kt, vt))
+    live = sum(min(p + 1, s) for p in pos_list)
+    nbytes = 2 * live * nkv * (hd + 4) + 2 * b * nh * hd * 2 + 4 * b
+    flops = 4 * nh * hd * live
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"kernel decode_attention_quant B={b} S={s} pos={pos_list} bf16 q, "
+          f"int8 K/V: ms={ms} ms_cold_l2={ms_cold} plain_ms={plain} "
+          f"sdpa_ms={lib} sdpa_ms_cold_l2={lib_cold} bound_ms={b_ms} "
+          f"({b_by}; {nbytes} bytes)", flush=True)
+    return dict(max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                ms_cold_l2=ms_cold, library_ms_cold_l2=lib_cold,
+                shape=f"B={b} S={s} NH={nh} NKV={nkv} Hd={hd} bf16 q, int8 K/V")
+
+
+def check_q4(torch, ops_q4):
+    """B3 at Q4_SHAPES: fp32 output against the plain version per row (x in
+    fp32 and in bf16: the kernel rounds it to bf16 either way), then times
+    with bf16 x. Library: cuBLAS x_bf16 @ W_bf16 over the weight
+    dequantized once, outside the timing. Returns the record of the widest
+    decode shape (8 x 4096 x 14336, w_gate and w_up) with every shape's
+    numbers beside it."""
+    from kubetorch_tpu_torch.models.quant import (_dequant_int4,
+                                                  _quantize_leaf_int4)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    per_shape = []
+    for m, k, n in Q4_SHAPES:
+        w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+        leaf = _quantize_leaf_int4(w, group=Q4_GROUP)
+        del w
+        packed, scale = leaf["__kt_q4__"], leaf["scale"]
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        for xin in (x, x.bfloat16()):
+            got = ops_q4.q4_matmul(xin, packed, scale)
+            want = ops_q4.q4_matmul_ref(xin, packed, scale)
+            err, rel = compare(f"q4_matmul M={m} K={k} N={n} x {xin.dtype}",
+                               got, want)
+        del got, want
+        xb = x.bfloat16()
+        ms = time_ms(torch, lambda: ops_q4.q4_matmul(xb, packed, scale))
+        plain = time_ms(torch, lambda: ops_q4.q4_matmul_ref(xb, packed, scale),
+                        iters=5)
+        wb = _dequant_int4(leaf, torch.bfloat16)
+        lib = time_ms(torch, lambda: xb @ wb)
+        ms_cold = time_cold_ms(torch, ops_q4.q4_matmul, (xb, packed, scale))
+        lib_cold = time_cold_ms(torch, torch.matmul, (xb, wb))
+        del wb
+        nbytes = k // 2 * n + 4 * (k // Q4_GROUP) * n + 2 * m * k + 4 * m * n
+        flops = 2 * m * k * n
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"kernel q4_matmul M={m} K={k} N={n} g={Q4_GROUP}: ms={ms} "
+              f"ms_cold_l2={ms_cold} plain_ms={plain} library_ms={lib} "
+              f"library_ms_cold_l2={lib_cold} (cuBLAS bf16 over W "
+              f"dequantized) bound_ms={b_ms} ({b_by}; {nbytes} bytes, "
+              f"{flops} flops)", flush=True)
+        per_shape.append(dict(shape=f"M={m} K={k} N={n} g={Q4_GROUP}",
+                              max_abs_err=err, max_row_rel_err=rel, ms=ms,
+                              plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib, ms_cold_l2=ms_cold,
+                              library_ms_cold_l2=lib_cold))
+        torch.cuda.empty_cache()
+    rec = dict(next(r for r in per_shape
+                    if r["shape"].startswith("M=8 K=4096 N=14336")))
+    rec["per_shape"] = per_shape
+    return rec
 
 
 def check_train_kernels(torch, F, ops_attn):
@@ -318,7 +476,6 @@ def sdpa_times(torch, F, q, k, v, do):
 def drive_engine(torch, ops_attn, ops_dec, card):
     from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
     from kubetorch_tpu_torch.serve import GenerationEngine
-    from kubetorch_tpu_torch.serve import engine as engine_mod
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -347,6 +504,34 @@ def drive_engine(torch, ops_attn, ops_dec, card):
     prompts = [prompt(n) for n in ENGINE_PROMPT_LENS]
     ops_attn.flash_attention.launches = 0
     ops_dec.decode_attention.launches = 0
+    handles, tok_s, steps = serve_requests(torch, eng, cfg, prompts)
+    flash_n = ops_attn.flash_attention.launches
+    decode_n = ops_dec.decode_attention.launches
+    outs = check_outputs("engine", handles, cfg, prompts)
+    if flash_n != cfg.n_layers * len(prompts):
+        fail(f"engine: flash_fwd launched {flash_n} times, expected "
+             f"{cfg.n_layers} per prefill x {len(prompts)}")
+    if decode_n != cfg.n_layers * steps or decode_n == 0:
+        fail(f"engine: decode_attention launched {decode_n} times over "
+             f"{steps} decode steps of {cfg.n_layers} layers")
+    ttft = [h.time_to_first_token() for h in handles]
+    print(f"engine: {len(outs)} requests completed, {MAX_NEW} tokens each; "
+          f"flash_fwd launches {flash_n}, decode_attention launches "
+          f"{decode_n} over {steps} decode steps", flush=True)
+    print(f"engine: decode_tok_per_s={tok_s} "
+          f"(tokens of steps without admission / their wall time) "
+          f"mean_ttft_s={sum(ttft) / len(ttft)} (submit to first token, "
+          f"queueing included) card={card}", flush=True)
+
+    check_first_token_logits(torch, "engine", params, params, cfg, eng, prompts)
+    profile_decode(torch, eng, prompts)
+    return flash_n, decode_n
+
+
+def serve_requests(torch, eng, cfg, prompts):
+    """The engine phases' traffic: 6 requests up front, then one more per
+    step while the grid decodes. Returns (handles, decode tokens/s over the
+    steps that admitted nothing, decode steps)."""
     steps0 = eng.stats().decode_steps
     handles, todo = [], list(prompts)
     handles += [eng.submit(p, max_new_tokens=MAX_NEW) for p in todo[:6]]
@@ -366,32 +551,25 @@ def drive_engine(torch, ops_attn, ops_dec, card):
             decode_tokens += after.tokens_generated - before.tokens_generated
         if not left and not todo:
             break
-    flash_n = ops_attn.flash_attention.launches
-    decode_n = ops_dec.decode_attention.launches
-    steps = eng.stats().decode_steps - steps0
+    return handles, decode_tokens / decode_time, eng.stats().decode_steps - steps0
 
+
+def check_outputs(label, handles, cfg, prompts):
     outs = [h.result(timeout=0) for h in handles]
     if len(outs) != len(prompts):
-        fail(f"engine: {len(outs)} of {len(prompts)} requests came back")
+        fail(f"{label}: {len(outs)} of {len(prompts)} requests came back")
     for n, o in zip(ENGINE_PROMPT_LENS, outs):
         if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o):
-            fail(f"engine: prompt of {n} tokens gave {len(o)} tokens {o[:8]}")
-    if flash_n != cfg.n_layers * len(prompts):
-        fail(f"engine: flash_fwd launched {flash_n} times, expected "
-             f"{cfg.n_layers} per prefill x {len(prompts)}")
-    if decode_n != cfg.n_layers * steps or decode_n == 0:
-        fail(f"engine: decode_attention launched {decode_n} times over "
-             f"{steps} decode steps of {cfg.n_layers} layers")
-    ttft = [h.time_to_first_token() for h in handles]
-    print(f"engine: {len(outs)} requests completed, {MAX_NEW} tokens each; "
-          f"flash_fwd launches {flash_n}, decode_attention launches "
-          f"{decode_n} over {steps} decode steps", flush=True)
-    print(f"engine: decode_tok_per_s={decode_tokens / decode_time} "
-          f"(tokens of steps without admission / their wall time) "
-          f"mean_ttft_s={sum(ttft) / len(ttft)} (submit to first token, "
-          f"queueing included) card={card}", flush=True)
+            fail(f"{label}: prompt of {n} tokens gave {len(o)} tokens {o[:8]}")
+    return outs
 
-    # first-token logits: kernel path vs plain path (attn_impl="xla")
+
+def check_first_token_logits(torch, label, params, plain_params, cfg, eng,
+                             prompts):
+    """First-token logits of a 300-token prompt in the 512 bucket: the
+    kernel path (``params``, attn_impl auto) against the plain path
+    (``plain_params``, attn_impl "xla"), within LOGITS_REL_L2."""
+    from kubetorch_tpu_torch.serve import engine as engine_mod
     n = 300
     toks = torch.zeros((1, 512), dtype=torch.long)
     toks[0, :n] = torch.tensor(prompts[4])
@@ -399,24 +577,170 @@ def drive_engine(torch, ops_attn, ops_dec, card):
     with torch.no_grad():
         lk, _, _ = engine_mod._prefill_logits(params, toks, n, cfg, eng._freqs)
         cfg_x = dataclasses.replace(cfg, attn_impl="xla")
-        lx, _, _ = engine_mod._prefill_logits(params, toks, n, cfg_x,
+        lx, _, _ = engine_mod._prefill_logits(plain_params, toks, n, cfg_x,
                                               eng._freqs)
     if not (torch.isfinite(lk).all() and lk.shape == (1, cfg.vocab_size)):
-        fail("engine: first-token logits not finite or of the wrong shape")
+        fail(f"{label}: first-token logits not finite or of the wrong shape")
     rel = float((lk - lx).norm() / lx.norm())
     max_abs = float((lk - lx).abs().max())
-    # the two paths differ only in attention numerics (fp32 P in the flash
-    # kernel, P rounded to bf16 in the plain cached attention) and then run
-    # the same bf16 layers; 32 layers of bf16 rounding keep the logits
-    # within a few percent of each other, relative in the L2 norm
-    tol = 5e-2
-    print(f"engine: first-token logits kernel vs plain: rel_l2={rel} "
-          f"max_abs={max_abs} tol_rel_l2={tol} argmax "
+    print(f"{label}: first-token logits kernel vs plain: rel_l2={rel} "
+          f"max_abs={max_abs} tol_rel_l2={LOGITS_REL_L2} argmax "
           f"{int(lk.argmax())}/{int(lx.argmax())}", flush=True)
-    if not rel <= tol:
-        fail(f"engine: first-token logits differ, rel L2 {rel} > {tol}")
+    if not rel <= LOGITS_REL_L2:
+        fail(f"{label}: first-token logits differ, rel L2 {rel} > {LOGITS_REL_L2}")
+
+
+def drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card):
+    """Llama-3-8B, full width and depth, int4 weights (group 128) and an
+    int8 KV cache, through GenerationEngine: the engine phase's warm-up and
+    requests, with the launch counts set to 0 just before the requests and
+    read just after."""
+    from kubetorch_tpu_torch.models.llama import LlamaConfig
+    from kubetorch_tpu_torch.models.quant import (dequantize_params,
+                                                  llama_init_quantized,
+                                                  quantized_bytes)
+    from kubetorch_tpu_torch.serve import GenerationEngine, QuantKVCache
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama_init_quantized(cfg, bits=4, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    sizes = quantized_bytes(params)
+    weight_gb = (sizes["quantized"] + sizes["full"]) / 1e9
+    eng = GenerationEngine(params, cfg, slots=8, max_len=2048,
+                           prefill_buckets=(128, 256, 512, 1024),
+                           quantize_kv=True, device="cuda")
+    if not isinstance(eng._cache, QuantKVCache):
+        fail("engine_q4: quantize_kv=True did not give an int8 grid")
+    cache_gb = sum(t.numel() * t.element_size() for t in eng._cache) / 1e9
+    print(f"engine_q4: Llama-3-8B int4 (group {Q4_GROUP}) initialised in "
+          f"{time.perf_counter() - t0:.2f}s; weight_gb={weight_gb} "
+          f"(packed + scales {sizes['quantized'] / 1e9}, full precision "
+          f"{sizes['full'] / 1e9}) cache_gb={cache_gb} (int8 grid, 8 slots x "
+          f"2048) allocated_gb={torch.cuda.memory_allocated() / 1e9} "
+          f"card={card}", flush=True)
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    warm = [eng.submit(prompt(n), max_new_tokens=2)
+            for n in (100, 200, 400, 800, 1500)]
+    while eng.step():
+        pass
+    for h in warm:
+        h.result(timeout=0)
+
+    prompts = [prompt(n) for n in ENGINE_PROMPT_LENS]
+    ops_attn.flash_attention.launches = 0
+    ops_dec.decode_attention.launches = 0
+    ops_dec.decode_attention_quant.launches = 0
+    ops_q4.q4_matmul.launches = 0
+    handles, tok_s, steps = serve_requests(torch, eng, cfg, prompts)
+    counts = dict(flash_fwd=ops_attn.flash_attention.launches,
+                  q4_matmul=ops_q4.q4_matmul.launches,
+                  decode_attention_quant=ops_dec.decode_attention_quant.launches,
+                  decode_attention=ops_dec.decode_attention.launches)
+    outs = check_outputs("engine_q4", handles, cfg, prompts)
+    L, n_req = cfg.n_layers, len(prompts)
+    # the head takes B3 only where it tiles; Llama-3-8B's 128256 columns do
+    # not (no multiple of 512), so its head is the fp32 dequant fallback
+    head = params["lm_head"]
+    head_q4 = int(ops_q4.q4_supported((1, cfg.dim), head["__kt_q4__"].shape,
+                                      head["scale"].shape))
+    want = dict(flash_fwd=L * n_req,
+                q4_matmul=(7 * L + head_q4) * (n_req + steps),
+                decode_attention_quant=L * steps, decode_attention=0)
+    if counts != want or steps == 0:
+        fail(f"engine_q4: launches {counts} over {n_req} prefills and "
+             f"{steps} decode steps, expected {want}")
+    ttft = [h.time_to_first_token() for h in handles]
+    print(f"engine_q4: {len(outs)} requests completed, {MAX_NEW} tokens each; "
+          f"launches {counts} over {n_req} prefills and {steps} decode steps "
+          f"(A1 = {L} x prefills, B3 = (7 x {L} + {head_q4} for the head) x "
+          f"(prefills + steps), B2 = {L} x steps, B1 = 0)", flush=True)
+    print(f"engine_q4: decode_tok_per_s={tok_s} (tokens of steps without "
+          f"admission / their wall time) mean_ttft_s={sum(ttft) / len(ttft)} "
+          f"(submit to first token, queueing included) weight_gb={weight_gb} "
+          f"cache_gb={cache_gb} card={card}", flush=True)
+
+    plain = dequantize_params(params, torch.bfloat16)
+    check_first_token_logits(torch, "engine_q4", params, plain, cfg, eng,
+                             prompts)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_decode_step_quant(torch, engine_mod, ops_dec, eng, params, cfg,
+                            prompts)
     profile_decode(torch, eng, prompts)
-    return flash_n, decode_n
+    return counts, dict(decode_tok_per_s=tok_s, mean_ttft_s=sum(ttft) / len(ttft),
+                        weight_gb=weight_gb, cache_gb=cache_gb)
+
+
+def check_decode_step_quant(torch, engine_mod, ops_dec, eng, params, cfg,
+                            prompts):
+    """One decode step of a full grid (8 slots of 40-token prompts, one
+    step in), from the same int8 grid state twice: through B2 (attn_impl
+    auto) and through the plain fold-in einsum (xla). Each runs on its own
+    copy of the grid, since a step writes its new row in place. In the B2
+    run every layer's call is held to the plain einsum on the same
+    arguments, per row (DECODE_STEP_REL_L2 has the reason)."""
+    from kubetorch_tpu_torch.ops.tolerance import ROW_RTOL, row_rel_err
+    hs = [eng.submit(p[:40], max_new_tokens=4) for p in prompts[:eng.slots]]
+    eng.step()                            # admissions + one decode step
+    torch.cuda.synchronize()
+    pos = torch.from_numpy(eng._pos).cuda()
+    toks = torch.from_numpy(eng._tok).cuda()
+    kernel = engine_mod.decode_attention_quant
+    layer_rel = {torch.bfloat16: [], torch.float32: []}
+
+    def held(q, kq, ks, vq, vs, pos, scale):
+        out = kernel(q, kq, ks, vq, vs, pos, scale=scale)
+        for qd in (q, q.float()):
+            got = out if qd is q else kernel(qd, kq, ks, vq, vs, pos,
+                                             scale=scale)
+            want = ops_dec.decode_attention_quant_ref(qd, kq, ks, vq, vs, pos,
+                                                      scale=scale)
+            layer_rel[got.dtype].append(row_rel_err(got, want))
+        return out
+
+    logits = {}
+    with torch.no_grad():
+        for impl in ("auto", "xla"):
+            grid = type(eng._cache)(*(t.clone() for t in eng._cache))
+            engine_mod.decode_attention_quant = held if impl == "auto" else kernel
+            try:
+                logits[impl] = engine_mod._decode_step_impl(
+                    params, grid, pos, toks,
+                    dataclasses.replace(cfg, attn_impl=impl), eng._freqs)
+            finally:
+                engine_mod.decode_attention_quant = kernel
+            del grid
+    for dtype, rels in layer_rel.items():
+        tol = ROW_RTOL[dtype]
+        print(f"engine_q4: decode step, B2 vs plain int8 einsum on the "
+              f"engine's arguments in each of {len(rels)} layers, q "
+              f"{dtype}: max_row_rel_err={max(rels)} row_rtol={tol}",
+              flush=True)
+        if len(rels) != cfg.n_layers or not max(rels) <= tol:
+            fail(f"engine_q4: B2 in the engine's step differs from the plain "
+                 f"einsum on its arguments: {rels} (tol {tol})")
+    lk, lx = logits["auto"], logits["xla"]
+    if not (torch.isfinite(lk).all() and lk.shape == (eng.slots, cfg.vocab_size)):
+        fail("engine_q4: decode-step logits not finite or of the wrong shape")
+    rel = float((lk - lx).norm() / lx.norm())
+    same = int((lk.argmax(-1) == lx.argmax(-1)).sum())
+    print(f"engine_q4: decode-step logits B2 vs plain int8 einsum, "
+          f"{eng.slots} slots at pos {eng._pos.tolist()}: rel_l2={rel} tol_rel_l2="
+          f"{DECODE_STEP_REL_L2} argmax agree {same}/{eng.slots}", flush=True)
+    if not rel <= DECODE_STEP_REL_L2:
+        fail(f"engine_q4: decode-step logits differ, rel L2 {rel} > "
+             f"{DECODE_STEP_REL_L2}")
+    while eng.step():
+        pass
+    for h in hs:
+        h.result(timeout=0)
 
 
 def profile_decode(torch, eng, prompts) -> None:
@@ -599,6 +923,7 @@ def main() -> None:
         from kubetorch_tpu_torch.ops import _build
         from kubetorch_tpu_torch.ops import attention as ops_attn
         from kubetorch_tpu_torch.ops import decode_attention as ops_dec
+        from kubetorch_tpu_torch.ops import quant_matmul as ops_q4
     except ImportError as e:
         fail(f"cannot import the port from {here}: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -615,8 +940,13 @@ def main() -> None:
 
     flash = check_flash(torch, F, ops_attn)
     dec = check_decode(torch, F, ops_dec)
+    dec_q = check_decode_quant(torch, F, ops_dec)
+    q4 = check_q4(torch, ops_q4)
     train_k = check_train_kernels(torch, F, ops_attn)
     flash_n, decode_n = drive_engine(torch, ops_attn, ops_dec, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_n, _ = drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card)
     gc.collect()
     torch.cuda.empty_cache()
     train_n, train = drive_training(torch, ops_attn, card)
@@ -627,7 +957,8 @@ def main() -> None:
              replaces="kubetorch_tpu/ops/attention.py:44",
              launches=train_n[0], path="training (forward with LSE, and "
              "again under remat)", **train_k["fwd"],
-             serving=dict(launches=flash_n, **flash)),
+             serving=dict(launches=flash_n, **flash),
+             serving_quant=dict(launches=quant_n["flash_fwd"])),
         dict(name="decode_attention", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
@@ -640,6 +971,16 @@ def main() -> None:
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:180",
              launches=train_n[2], path="training", **train_k["dkv"]),
+        dict(name="decode_attention_quant", route="cuda",
+             source="kubetorch_tpu_torch/csrc/decode_attention.cu",
+             replaces="kubetorch_tpu/ops/decode_attention.py:46",
+             launches=quant_n["decode_attention_quant"],
+             path="quantized serving (int8 KV cache)", **dec_q),
+        dict(name="q4_matmul", route="cuda",
+             source="kubetorch_tpu_torch/csrc/quant_matmul.cu",
+             replaces="kubetorch_tpu/ops/quant_matmul.py:31",
+             launches=quant_n["q4_matmul"],
+             path="quantized serving (int4 weights)", **q4),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -5,8 +5,10 @@ The cache is one preallocated (L, B, S_max, NKV, Hd) buffer per K and V,
 updated in place (where the JAX version returns a new cache, this one
 writes into the given one and returns it). A from-zero prefill whose
 length is a multiple of 128 runs through the flash attention kernel; every
-other step attends to the cache with the plain masked einsum. MoE layers,
-LoRA adapters and quantized weights are not ported yet and raise.
+other step attends to the cache with the plain masked einsum. Params may
+be quantized (``models.quant``): each layer is dequantized at the top of
+its body (int8 materializes, int4 stays packed for ``wdot``). MoE layers
+and LoRA adapters are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from .common import resolve_device
 from .llama import LlamaConfig, apply_rope, layer_weights, rmsnorm, rope_freqs
-from .quant import lm_head_dot, wdot
+from .quant import dequant_layer, lm_head_dot, wdot
 
 NEG_INF = -1e30
 
@@ -71,7 +73,9 @@ def _layer_step(cfg, x, lw, layer_cache_k, layer_cache_v, start: int,
                 freqs_full, flash_prefill: bool = False) -> torch.Tensor:
     """One dense layer over T new tokens at absolute positions
     ``start .. start+T-1``; writes their K/V rows into this layer's cache
-    (B, S_max, NKV, Hd) in place and returns the new hidden states."""
+    (B, S_max, NKV, Hd) in place and returns the new hidden states. ``lw``
+    may hold quantized leaves, dequantized here, one layer at a time."""
+    lw = dequant_layer(lw, cfg.dtype)
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rmsnorm(x, lw["attn_norm"], cfg.norm_eps)

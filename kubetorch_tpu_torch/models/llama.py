@@ -213,9 +213,18 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lw: Dict[str, torch.Tensor],
     return x + ffn
 
 
-def layer_weights(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s weights: views into the stacked ``(L, ...)`` leaves."""
-    return {name: w[i] for name, w in params["layers"].items()}
+def _layer_slice(w: Any, i: int) -> Any:
+    if isinstance(w, dict):   # a quantized leaf: every array in it is stacked
+        return {k: _layer_slice(v, i) for k, v in w.items()}
+    return w[i]
+
+
+def layer_weights(params: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s weights: views into the stacked ``(L, ...)`` leaves. A
+    quantized leaf (``models.quant``, e.g. ``{"__kt_q4__": (L, K/2, N),
+    "scale": (L, K/g, N)}``) is sliced key by key and reaches the layer as
+    a dict, as a ``lax.scan`` over the JAX param tree gives it."""
+    return {name: _layer_slice(w, i) for name, w in params["layers"].items()}
 
 
 def llama_hidden(params: Dict[str, Any], tokens: torch.Tensor,

@@ -1,18 +1,26 @@
 """Flash-decode: the hand-written CUDA kernel (``csrc/decode_attention.cu``)
 that replaces the Pallas kernel
-``kubetorch_tpu/ops/decode_attention.py:_make_decode_kernel(quant=False)``,
-and its plain version.
+``kubetorch_tpu/ops/decode_attention.py:_make_decode_kernel``, in both of
+its cache layouts, and their plain versions.
 
 One new token per slot attends to that slot's cache rows ``<= pos``. The
 kernel reads the engine's (B, S, NKV, Hd) cache slice in place through its
-strides and touches only live rows; P rounds to the cache type before the
-P.V product, as in the Pallas body. The int8-cache form is not ported yet.
+strides and touches only live rows.
 
-``decode_attention`` launches the kernel for CUDA tensors and uses the
-plain version only for CPU tensors. ``decode_attention.launches`` counts
-kernel launches. It has no gradient (the Pallas kernel has no VJP either):
-an input that requires grad under grad mode raises rather than return an
-output cut from the graph.
+- ``decode_attention`` (B1): a bf16/fp32 cache; P rounds to the cache type
+  before the P.V product, as in the Pallas body.
+- ``decode_attention_quant`` (B2): an int8 cache with one fp32 scale per
+  row and head (``serve.kv_quant``); the scales fold into the math (logit
+  columns times ``ks``, probabilities times ``vs``), all in fp32, and the
+  output is in q's type.
+
+Both are one kernel body in the CUDA source, as in the Pallas file. Each
+wrapper launches the kernel for CUDA tensors and uses its plain version
+only for CPU tensors; ``decode_attention.launches`` and
+``decode_attention_quant.launches`` count kernel launches. Neither has a
+gradient (the Pallas kernel has no VJP either): an input that requires
+grad under grad mode raises rather than return an output cut from the
+graph.
 """
 
 from __future__ import annotations
@@ -50,14 +58,59 @@ def decode_attention_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(b, nh, hd).to(q.dtype)
 
 
-def _lib():
-    lib = _build.load("decode_attention")
-    fn = lib.kt_decode_attention
+def decode_attention_quant_ref(q: torch.Tensor, kq: torch.Tensor,
+                               ks: torch.Tensor, vq: torch.Tensor,
+                               vs: torch.Tensor, pos: torch.Tensor, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version, which is also the engine's ``xla`` branch: the
+    fold-in einsum of the JAX engine's ``_decode_layer_quant``. Logits are
+    fp32 q against int8 K widened to fp32, times ``scale`` and then the K
+    row scale; rows past ``pos`` masked with -1e30; softmax in fp32;
+    probabilities times the V row scale meet int8 V widened to fp32. The
+    output is in q's type."""
+    b, nh, hd = q.shape
+    s, nkv = kq.shape[1], kq.shape[2]
+    if scale is None:
+        scale = hd ** -0.5
+    qg = q.float().reshape(b, nkv, nh // nkv, hd)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, kq.float()) * scale
+    logits = logits * ks.transpose(1, 2)[:, :, None, :]
+    mask = torch.arange(s, device=q.device)[None, :] <= pos[:, None]   # (B, S)
+    logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1) * vs.transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bkgs,bskh->bkgh", probs, vq.float())
+    return out.reshape(b, nh, hd).to(q.dtype)
+
+
+def _fn(name: str, argtypes):
+    fn = getattr(_build.load("decode_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib():
+    return _fn("kt_decode_attention",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+               + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+
+
+def _lib_quant():
+    return _fn("kt_decode_attention_quant",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+               + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+
+
+def _check_pos(pos: torch.Tensor, device: torch.device) -> None:
+    if pos.device != device or pos.dtype != torch.int32 or not pos.is_contiguous():
+        raise ValueError(f"pos must be a contiguous int32 tensor on {device}, "
+                         f"got {pos.dtype} on {pos.device}")
+
+
+def _check_group(nh: int, nkv: int, hd: int) -> None:
+    if (nh // nkv) * hd > 2048:
+        raise ValueError(f"GQA group {nh // nkv} x head dim {hd} exceeds 2048")
 
 
 def _launch(q, ck, cv, pos, scale: float) -> torch.Tensor:
@@ -66,11 +119,8 @@ def _launch(q, ck, cv, pos, scale: float) -> torch.Tensor:
     check_dtype_and_head_dim(q.dtype, hd)
     for name, t in (("q", q), ("ck", ck), ("cv", cv)):
         check_cuda_operand(name, t, q.dtype, q.device)
-    if pos.device != q.device or pos.dtype != torch.int32 or not pos.is_contiguous():
-        raise ValueError(f"pos must be a contiguous int32 tensor on {q.device}, "
-                         f"got {pos.dtype} on {pos.device}")
-    if (nh // nkv) * hd > 2048:
-        raise ValueError(f"GQA group {nh // nkv} x head dim {hd} exceeds 2048")
+    _check_pos(pos, q.device)
+    _check_group(nh, nkv, hd)
     out = torch.empty((b, nh, hd), dtype=q.dtype, device=q.device)
     strides = strides_arg([q.stride(0), q.stride(1),
                            ck.stride(0), ck.stride(1), ck.stride(2),
@@ -87,6 +137,25 @@ def _launch(q, ck, cv, pos, scale: float) -> torch.Tensor:
     return out
 
 
+def _check_call(name: str, q, ck, cv, pos, *tensors) -> None:
+    """Shapes, GQA and the no-gradient rule, for both wrappers."""
+    b, nh, hd = q.shape
+    if ck.shape != cv.shape or ck.shape[0] != b or ck.shape[3] != hd:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} cache "
+                         f"{tuple(ck.shape)} / {tuple(cv.shape)}")
+    if nh % ck.shape[2]:
+        raise ValueError(f"GQA requires n_kv | n_heads, got {ck.shape[2]}, {nh}")
+    if pos.shape != (b,):
+        raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q, ck, cv, *tensors)):
+        raise RuntimeError(f"{name} has no gradient; call it under "
+                           "torch.no_grad() or on tensors that do not "
+                           "require grad")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+
+
 def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      pos: torch.Tensor, *,
                      scale: Optional[float] = None) -> torch.Tensor:
@@ -94,26 +163,67 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     slot's new token occupies (already written). Returns (B, NH, Hd). CUDA
     tensors go through the kernel (bf16 or fp32, Hd 16, 32, 64 or 128;
     anything else raises), CPU tensors through :func:`decode_attention_ref`."""
-    b, nh, hd = q.shape
-    if ck.shape != cv.shape or ck.shape[0] != b or ck.shape[3] != hd:
-        raise ValueError(f"shape mismatch q {tuple(q.shape)} ck {tuple(ck.shape)} "
-                         f"cv {tuple(cv.shape)}")
-    if nh % ck.shape[2]:
-        raise ValueError(f"GQA requires n_kv | n_heads, got {ck.shape[2]}, {nh}")
-    if pos.shape != (b,):
-        raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
-    if torch.is_grad_enabled() and (q.requires_grad or ck.requires_grad
-                                    or cv.requires_grad):
-        raise RuntimeError("decode_attention has no gradient; call it under "
-                           "torch.no_grad() or on tensors that do not "
-                           "require grad")
+    _check_call("decode_attention", q, ck, cv, pos)
     if scale is None:
-        scale = hd ** -0.5
+        scale = q.shape[2] ** -0.5
     if q.device.type == "cpu":
         return decode_attention_ref(q, ck, cv, pos, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
     return _launch(q, ck, cv, pos, scale)
 
 
 decode_attention.launches = 0
+
+
+def _launch_quant(q, kq, ks, vq, vs, pos, scale: float) -> torch.Tensor:
+    b, nh, hd = q.shape
+    s, nkv = kq.shape[1], kq.shape[2]
+    check_dtype_and_head_dim(q.dtype, hd)
+    check_cuda_operand("q", q, q.dtype, q.device)
+    for name, t in (("kq", kq), ("vq", vq)):
+        check_cuda_operand(name, t, torch.int8, q.device)
+    for name, t in (("ks", ks), ("vs", vs)):
+        if t.device != q.device or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on {q.device}, got "
+                            f"{t.dtype} on {t.device}")
+    _check_pos(pos, q.device)
+    _check_group(nh, nkv, hd)
+    out = torch.empty((b, nh, hd), dtype=q.dtype, device=q.device)
+    strides = strides_arg([q.stride(0), q.stride(1),
+                           kq.stride(0), kq.stride(1), kq.stride(2),
+                           vq.stride(0), vq.stride(1), vq.stride(2),
+                           out.stride(0), out.stride(1),
+                           ks.stride(0), ks.stride(1), ks.stride(2),
+                           vs.stride(0), vs.stride(1), vs.stride(2)])
+    fn = _lib_quant()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+                 vs.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                 DTYPE_CODES[q.dtype], b, s, nh, nkv, hd, strides,
+                 float(scale), stream)
+    raise_on_error("decode_attention_quant", err)
+    decode_attention_quant.launches += 1
+    return out
+
+
+def decode_attention_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                           vq: torch.Tensor, vs: torch.Tensor,
+                           pos: torch.Tensor, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Flash-decode over an int8 cache. q: (B, NH, Hd) bf16 or fp32;
+    kq/vq: (B, S, NKV, Hd) int8; ks/vs: (B, S, NKV) fp32 row scales; pos:
+    (B,) int32. Returns (B, NH, Hd) in q's type. CUDA tensors go through
+    the kernel (Hd 16, 32, 64 or 128; anything else raises), CPU tensors
+    through :func:`decode_attention_quant_ref`."""
+    _check_call("decode_attention_quant", q, kq, vq, pos, ks, vs)
+    if ks.shape != kq.shape[:3] or vs.shape != vq.shape[:3]:
+        raise ValueError(f"scales must be {tuple(kq.shape[:3])}, got "
+                         f"{tuple(ks.shape)} / {tuple(vs.shape)}")
+    if scale is None:
+        scale = q.shape[2] ** -0.5
+    if q.device.type == "cpu":
+        return decode_attention_quant_ref(q, kq, ks, vq, vs, pos, scale=scale)
+    return _launch_quant(q, kq, ks, vq, vs, pos, scale)
+
+
+decode_attention_quant.launches = 0

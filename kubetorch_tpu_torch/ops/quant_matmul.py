@@ -1,0 +1,152 @@
+"""Fused int4 matmul: the hand-written CUDA kernel (``csrc/quant_matmul.cu``)
+that replaces the Pallas kernel ``kubetorch_tpu/ops/quant_matmul.py:_kernel``,
+and its plain version.
+
+``x @ W`` where W is int4 in the half-split nibble pack of
+``models.quant._quantize_leaf_int4``: byte row r of ``packed`` (K/2, N)
+holds weight row r in its low nibble and row r + K/2 in its high nibble,
+and ``scale`` (G, N) holds one fp32 scale per group of g = K/G rows and
+output column. The lo plane meets ``x[:, :K/2]`` with scale rows
+[0, G/2), the hi plane meets ``x[:, K/2:]`` with scale rows [G/2, G).
+x is rounded to bf16 first, even when it is fp32 (as the Pallas wrapper
+does), each group's product of each plane accumulates in fp32, is
+multiplied by its scale row, and the groups are summed in order. The
+output is fp32; callers cast.
+
+``q4_matmul`` launches the kernel for CUDA tensors and uses the plain
+version only for CPU tensors. ``q4_matmul.launches`` counts kernel
+launches. ``q4_supported`` is the JAX package's tiling predicate
+verbatim, so the same shapes take the kernel here as there; the rest go
+to the dequantize-then-matmul fallback in ``models.quant.wdot``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from ._kernel_args import check_cuda_operand, raise_on_error
+
+# what the kernel takes: the group (its K chunk) a multiple of 64 packed
+# rows, N a multiple of 16 (16-byte loads of packed rows)
+KERNEL_GROUP_MULTIPLE = 64
+KERNEL_N_MULTIPLE = 16
+# the Pallas kernel's output tile width; routes the same shapes as
+# kubetorch_tpu/ops/quant_matmul.py:96 (this kernel's own tiles are narrower)
+_JAX_BLOCK_J = 512
+
+
+def q4_supported(x_shape, packed_shape, scale_shape) -> bool:
+    """Static tiling check, the JAX package's predicate verbatim: the group
+    size must be a multiple of 128 and N a multiple of ``min(512, N)``."""
+    b, din = x_shape
+    half, dout = packed_shape
+    groups = scale_shape[0]
+    if din != 2 * half or groups % 2 or scale_shape[1] != dout:
+        return False
+    if half % (groups // 2):
+        return False
+    block_k = half // (groups // 2)
+    if block_k % 128 or dout % min(_JAX_BLOCK_J, dout):
+        return False
+    return True
+
+
+def unpack_int4(packed: torch.Tensor):
+    """(lo, hi) int32 planes of a nibble-packed int8 tensor, each value
+    sign-extended from its nibble: ``(p << 28) >> 28`` and
+    ``(p << 24) >> 28`` on ``p = int32(packed)``, as in the Pallas body."""
+    p = packed.to(torch.int32)
+    return (p << 28) >> 28, (p << 24) >> 28
+
+
+def q4_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """The plain version: the Pallas body's arithmetic, one group at a
+    time. x (M, K) is rounded to bf16; per group t, the fp32 product of
+    the lo plane with x's lo half times scale row t plus that of the hi
+    plane with x's hi half times scale row G/2 + t is added to the output
+    in group order. Never dequantizes the whole weight."""
+    xb = x.to(torch.bfloat16).float()
+    half = packed.shape[0]
+    hg = scale.shape[0] // 2
+    g = half // hg
+    lo, hi = unpack_int4(packed)
+    out = None
+    for t in range(hg):
+        rows = slice(t * g, (t + 1) * g)
+        part = (xb[:, rows] @ lo[rows].float()) * scale[t]
+        part = part + (xb[:, half + t * g: half + (t + 1) * g]
+                       @ hi[rows].float()) * scale[hg + t]
+        out = part if out is None else out + part
+    return out
+
+
+def _lib():
+    lib = _build.load("quant_matmul")
+    fn = lib.kt_q4_matmul
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x: torch.Tensor, packed: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    m, k = x.shape
+    half, n = packed.shape
+    groups = scale.shape[0]
+    g = half // (groups // 2)
+    if g % KERNEL_GROUP_MULTIPLE or n % KERNEL_N_MULTIPLE:
+        raise ValueError(f"q4_matmul kernel takes a group size that is a "
+                         f"multiple of {KERNEL_GROUP_MULTIPLE} and N a "
+                         f"multiple of {KERNEL_N_MULTIPLE}, got group {g}, "
+                         f"N {n}")
+    xb = x.to(torch.bfloat16).contiguous()
+    for name, t, dtype in (("x", xb, torch.bfloat16),
+                           ("packed", packed, torch.int8),
+                           ("scale", scale, torch.float32)):
+        # the kernel reads rows at a stride of their width
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, got strides "
+                             f"{t.stride()}")
+        check_cuda_operand(name, t, dtype, x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(xb.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), m, n, k, groups, stream)
+    raise_on_error("q4_matmul", err)
+    q4_matmul.launches += 1
+    return out
+
+
+def q4_matmul(x: torch.Tensor, packed: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """``x @ W`` for half-split nibble-packed int4 W: x (M, K) float,
+    packed (K/2, N) int8, scale (G, N) fp32 with the group K/G dividing
+    K/2. Returns (M, N) fp32. CUDA tensors go through the kernel (group a
+    multiple of 64, N a multiple of 16; anything else raises), CPU tensors
+    through :func:`q4_matmul_ref`."""
+    m, k = x.shape
+    half, n = packed.shape
+    groups = scale.shape[0]
+    if (k != 2 * half or groups < 2 or groups % 2 or scale.shape[1] != n
+            or half % (groups // 2)):
+        raise ValueError(f"shape mismatch x {tuple(x.shape)} packed "
+                         f"{tuple(packed.shape)} scale {tuple(scale.shape)}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("q4_matmul has no gradient; call it under "
+                           "torch.no_grad() or on tensors that do not "
+                           "require grad")
+    if x.device.type == "cpu":
+        return q4_matmul_ref(x, packed, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"q4_matmul runs on cuda or cpu, not {x.device}")
+    return _launch(x, packed, scale)
+
+
+q4_matmul.launches = 0

@@ -11,6 +11,14 @@
   per-slot positions drive RoPE and the mask. Attention is the
   flash-decode kernel (``ops.decode_attention``), which reads each layer's
   cache slice in place and only the rows each slot has written.
+- **Quantized serving.** Params may be int8 or int4 (``models.quant``):
+  each layer is dequantized at the top of its body, and int4 projections
+  go through the fused int4 matmul kernel (``ops.quant_matmul``) where
+  its tiling applies. ``quantize_kv=True`` keeps the grid in int8 with a
+  scale per row and head (``serve.kv_quant``): a prefill's rows quantize
+  when they are spliced into the slot, each decode step quantizes its new
+  row, and attention is the int8 flash-decode kernel, which folds the
+  scales in.
 - **Bucketed prefill.** Prompts are right-padded to a bucket length and
   run through the flash attention kernel (``ops.attention``) when the
   bucket is a multiple of 128; the rows are then copied into the slot.
@@ -27,9 +35,9 @@
   same tokens whatever slot it lands in and whoever its neighbours are.
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
-ignored: ``quantize_kv=True``, ``auto_prefix``, ``prefill_chunk``,
-``aot_cache``, a device mesh, LoRA adapters, cached prefixes, frequency and
-presence penalties, and ``logit_bias``; MoE and quantized weights raise in
+ignored: ``auto_prefix``, ``prefill_chunk``, ``aot_cache``, a device mesh
+(so neither the sharded int8 decode), LoRA adapters, cached prefixes,
+frequency and presence penalties, and ``logit_bias``; MoE layers raise in
 the model code.
 """
 
@@ -47,11 +55,14 @@ import numpy as np
 import torch
 
 from ..models.common import resolve_device
-from ..models.generate import (KVCache, _flash_prefill_wanted, _layer_step,
-                               ffn_block, filter_logits, init_cache)
+from ..models.generate import (_flash_prefill_wanted, _layer_step, ffn_block,
+                               filter_logits, init_cache)
 from ..models.llama import _rotate, layer_weights, rmsnorm, rope_freqs
-from ..models.quant import lm_head_dot, wdot
-from ..ops.decode_attention import decode_attention, decode_attention_ref
+from ..models.quant import dequant_layer, is_quantized, lm_head_dot, wdot
+from ..ops.decode_attention import (decode_attention, decode_attention_quant,
+                                    decode_attention_quant_ref,
+                                    decode_attention_ref)
+from .kv_quant import QuantKVCache, init_quant_cache, quantize_rows
 
 
 # ---------------------------------------------------------------------------
@@ -64,28 +75,59 @@ def _rope_slot(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     return _rotate(x, freqs[:, None, :])
 
 
+def _decode_qkv(cfg, x, lw, freqs):
+    """The projections of one new token per slot, RoPE applied: q (B, NH,
+    Hd), k and v (B, NKV, Hd). Shared by both cache layouts."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    h = rmsnorm(x, lw["attn_norm"], cfg.norm_eps)
+    q = wdot(h, lw["wq"]).reshape(b, cfg.n_heads, hd)
+    k = wdot(h, lw["wk"]).reshape(b, cfg.n_kv_heads, hd)
+    v = wdot(h, lw["wv"]).reshape(b, cfg.n_kv_heads, hd)
+    return _rope_slot(q, freqs), _rope_slot(k, freqs), v
+
+
+def _decode_out(cfg, x, lw, attn) -> torch.Tensor:
+    """Output projection of attention (B, NH, Hd) and the FFN, residuals
+    included. Shared by both cache layouts."""
+    x = x + wdot(attn.reshape(x.shape[0], 1, -1).to(x.dtype), lw["wo"])
+    h = rmsnorm(x, lw["ffn_norm"], cfg.norm_eps)
+    return x + ffn_block(cfg, h, lw)
+
+
 def _decode_layer(cfg, x, lw, ck, cv, pos, pos_idx, freqs) -> torch.Tensor:
     """One layer over one new token per slot. x: (B, 1, D); ck/cv: this
     layer's (B, S, NKV, Hd) cache, written in place at each slot's row;
     pos: (B,) int32 row of each slot's new token (``pos_idx`` the same as
-    int64 for indexing); freqs: (B, Hd/2)."""
-    b = x.shape[0]
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    h = rmsnorm(x, lw["attn_norm"], cfg.norm_eps)
-    q = wdot(h, lw["wq"]).reshape(b, nh, hd)
-    k = wdot(h, lw["wk"]).reshape(b, nkv, hd)
-    v = wdot(h, lw["wv"]).reshape(b, nkv, hd)
-    q, k = _rope_slot(q, freqs), _rope_slot(k, freqs)
-    bi = torch.arange(b, device=x.device)
+    int64 for indexing); freqs: (B, Hd/2). ``lw`` is dequantized already
+    (:func:`_decode_step_impl`)."""
+    q, k, v = _decode_qkv(cfg, x, lw, freqs)
+    bi = torch.arange(x.shape[0], device=x.device)
     ck[bi, pos_idx] = k.to(ck.dtype)
     cv[bi, pos_idx] = v.to(cv.dtype)
     # "xla" keeps the plain masked einsum; otherwise the flash-decode
     # wrapper (the kernel on CUDA, the same einsum on the CPU)
     attend = decode_attention_ref if cfg.attn_impl == "xla" else decode_attention
-    attn = attend(q, ck, cv, pos, scale=hd ** -0.5).reshape(b, 1, nh * hd)
-    x = x + wdot(attn, lw["wo"])
-    h = rmsnorm(x, lw["ffn_norm"], cfg.norm_eps)
-    return x + ffn_block(cfg, h, lw)
+    return _decode_out(cfg, x, lw, attend(q, ck, cv, pos,
+                                          scale=cfg.head_dim ** -0.5))
+
+
+def _decode_layer_quant(cfg, x, lw, kq, ks, vq, vs, pos, pos_idx,
+                        freqs) -> torch.Tensor:
+    """:func:`_decode_layer` against an int8 cache (``serve.kv_quant``):
+    the new row is quantized before it is written (kq/vq (B, S, NKV, Hd)
+    int8, ks/vs (B, S, NKV) fp32, this layer's slices, in place), and
+    attention folds the row scales in instead of materializing fp rows."""
+    q, k, v = _decode_qkv(cfg, x, lw, freqs)
+    bi = torch.arange(x.shape[0], device=x.device)
+    kq[bi, pos_idx], ks[bi, pos_idx] = quantize_rows(k)
+    vq[bi, pos_idx], vs[bi, pos_idx] = quantize_rows(v)
+    # "xla" keeps the plain fold-in einsum; otherwise the int8 flash-decode
+    # wrapper (the kernel on CUDA, the same einsum on the CPU)
+    attend = (decode_attention_quant_ref if cfg.attn_impl == "xla"
+              else decode_attention_quant)
+    return _decode_out(cfg, x, lw, attend(q, kq, ks, vq, vs, pos,
+                                          scale=cfg.head_dim ** -0.5))
 
 
 def _sample_slots(logits, temps: np.ndarray, top_k: Optional[int],
@@ -111,23 +153,36 @@ def _sample_slots(logits, temps: np.ndarray, top_k: Optional[int],
     return tok, logp.gather(-1, tok[:, None])[:, 0]
 
 
-def _decode_step_impl(params, cache: KVCache, pos, toks, cfg, freqs_table):
+def _decode_step_impl(params, cache, pos, toks, cfg, freqs_table):
     """Single-step decode math for every slot: returns (B, V) fp32 logits
-    and writes each slot's new K/V row. ``pos`` (B,) int32 on the device;
-    positions past the grid clamp to its last row (module docstring)."""
-    s_max = cache.k.shape[2]
+    and writes each slot's new K/V row. ``cache`` is a ``KVCache`` or an
+    int8 ``QuantKVCache``. ``pos`` (B,) int32 on the device; positions past
+    the grid clamp to its last row (module docstring), in every tensor of
+    either cache."""
+    quant = isinstance(cache, QuantKVCache)
+    s_max = (cache.kq if quant else cache.k).shape[2]
     pos = pos.clamp(max=s_max - 1)
     pos_idx = pos.long()
     x = params["embed"][toks][:, None].to(cfg.dtype)          # (B, 1, D)
     freqs = freqs_table[pos_idx]                               # (B, Hd/2)
+    # decided once per tree: a plain tree skips the per-layer dequant walk
+    quant_w = any(is_quantized(w) for w in params["layers"].values())
     for i in range(cfg.n_layers):
-        x = _decode_layer(cfg, x, layer_weights(params, i), cache.k[i],
-                          cache.v[i], pos, pos_idx, freqs)
+        lw = layer_weights(params, i)
+        if quant_w:
+            lw = dequant_layer(lw, cfg.dtype)
+        if quant:
+            x = _decode_layer_quant(cfg, x, lw, cache.kq[i], cache.ks[i],
+                                    cache.vq[i], cache.vs[i], pos, pos_idx,
+                                    freqs)
+        else:
+            x = _decode_layer(cfg, x, lw, cache.k[i], cache.v[i], pos,
+                              pos_idx, freqs)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_head_dot(x[:, 0], params, cfg.dtype)
 
 
-def _decode_block(params, cache: KVCache, pos, toks, cfg, freqs_table,
+def _decode_block(params, cache, pos, toks, cfg, freqs_table,
                   n_steps: int, temps, top_k, top_ps, gens):
     """Advance every slot ``n_steps`` tokens. pos (B,) int32 and toks (B,)
     int64 on the device. Returns (tokens (K, B), logprobs (K, B))."""
@@ -167,10 +222,21 @@ def _prefill(params, tokens, true_len: int, cfg, freqs_table, temps, top_k,
     return first, k, v, lps
 
 
-def _splice_slot(cache: KVCache, slot: int, k_new, v_new) -> None:
+def _splice_slot(cache, slot: int, k_new, v_new) -> None:
     """Copy a prefill's K/V rows (L, 1, T_b, NKV, Hd) into one slot of the
-    grid, in place."""
+    grid, in place. An int8 ``QuantKVCache`` grid quantizes the rows here,
+    all T_b of the padded bucket (padding rows get their own scales and
+    are overwritten before they are read); prefill itself always runs
+    full-precision math."""
     t = k_new.shape[2]
+    if isinstance(cache, QuantKVCache):
+        kq, ks = quantize_rows(k_new[:, 0])
+        vq, vs = quantize_rows(v_new[:, 0])
+        cache.kq[:, slot, :t] = kq
+        cache.ks[:, slot, :t] = ks
+        cache.vq[:, slot, :t] = vq
+        cache.vs[:, slot, :t] = vs
+        return
     cache.k[:, slot, :t] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, slot, :t] = v_new[:, 0].to(cache.v.dtype)
 
@@ -304,9 +370,11 @@ class GenerationEngine:
     has the design). Drive it with :meth:`step` (deterministic) or start
     the background loop with :meth:`start`.
 
-    ``params`` is the stacked Llama param dict (``models.llama``) on
-    ``device`` — ``cuda`` unless the caller names another. ``eos_id``
-    retires a slot early; ``max_len`` caps prompt + completion.
+    ``params`` is the stacked Llama param dict (``models.llama``), plain
+    or quantized (``models.quant``), on ``device`` — ``cuda`` unless the
+    caller names another. ``eos_id`` retires a slot early; ``max_len``
+    caps prompt + completion; ``quantize_kv=True`` keeps the KV grid in
+    int8 (``serve.kv_quant``).
     """
 
     def __init__(self, params: Dict[str, Any], cfg, *, slots: int = 8,
@@ -318,8 +386,7 @@ class GenerationEngine:
                  decode_block: int = 1, auto_prefix: bool = False,
                  prefill_chunk: Optional[int] = None, aot_cache=None,
                  mesh=None, device=None):
-        for flag, what in ((quantize_kv, "quantize_kv=True (int8 KV cache)"),
-                           (auto_prefix, "auto_prefix"),
+        for flag, what in ((auto_prefix, "auto_prefix"),
                            (prefill_chunk is not None, "prefill_chunk"),
                            (aot_cache is not None, "aot_cache"),
                            (mesh is not None, "a device mesh")):
@@ -346,7 +413,10 @@ class GenerationEngine:
         self.decode_block = int(decode_block)
         self._buckets = sorted({min(b, self.max_len)
                                 for b in prefill_buckets} | {self.max_len})
-        self._cache = init_cache(cfg, self.slots, self.max_len,
+        # the int8 grid (serve.kv_quant): rows quantize at the splice and
+        # at each decode step's write
+        make_cache = init_quant_cache if quantize_kv else init_cache
+        self._cache = make_cache(cfg, self.slots, self.max_len,
                                  device=self.device)
         self._freqs = rope_freqs(cfg, self.max_len, device=self.device)
         self._pos = np.zeros(self.slots, np.int32)     # next write position

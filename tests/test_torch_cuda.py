@@ -16,6 +16,8 @@ is about lr in size whatever the grad's, so an entry whose grad is
 rounding noise can step either way on the two devices (on an H100, one of
 16,384 wq entries ended 3.1e-5 apart, against steps of ~1.5e-4); such
 outliers weigh ~1e-3 of a leaf's change, a wrong update rule all of it.
+The int4 matmul (fp32 output) and the int8 flash-decode take the same
+per-row tolerances as the other kernels.
 """
 
 import dataclasses
@@ -35,11 +37,16 @@ from kubetorch_tpu_torch.ops.attention import (attention_delta,
                                                flash_attention_bwd_ref,
                                                flash_attention_fwd_ref,
                                                flash_attention_ref)
+from kubetorch_tpu_torch.models.quant import (_quantize_leaf_int4,
+                                              quantize_params_int4)
 from kubetorch_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      decode_attention_quant,
+                                                      decode_attention_quant_ref,
                                                       decode_attention_ref)
+from kubetorch_tpu_torch.ops.quant_matmul import q4_matmul, q4_matmul_ref
 from kubetorch_tpu_torch.ops.tolerance import (LSE_ATOL, ROW_RTOL,
                                                grad_row_rel_err, row_rel_err)
-from kubetorch_tpu_torch.serve import GenerationEngine
+from kubetorch_tpu_torch.serve import GenerationEngine, quantize_rows
 from kubetorch_tpu_torch.train import (default_optimizer, init_train_state,
                                        make_train_step)
 from kubetorch_tpu_torch.train.optim import tree_leaves, tree_map
@@ -299,3 +306,170 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         assert abs(a - b) <= TOL_STEP_LOSS * abs(b)
     for a, b, p0 in zip(tree_leaves(gpu_p), tree_leaves(cpu_p), tree_leaves(init)):
         assert float((a - b).norm() / (b - p0).norm()) <= TOL_STEP_UPDATE
+
+
+# ---------------------------------------------------------------------------
+# quantized serving: B3 (int4 matmul), B2 (int8 flash-decode)
+# ---------------------------------------------------------------------------
+
+
+def _q4_operands(cuda, m, k, n, group=128, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    w = torch.randn(k, n, generator=g, device=cuda) / k ** 0.5
+    leaf = _quantize_leaf_int4(w, group=group)
+    return x, leaf["__kt_q4__"], leaf["scale"]
+
+
+@pytest.mark.parametrize("m", [1, 8, 300, 2048])
+@pytest.mark.parametrize("k,n", [(4096, 1040), (512, 4096), (1024, 48)])
+def test_q4_kernel_matches_plain(cuda, m, k, n):
+    """Both tile shapes (M <= 16 and above), ragged M, and N that is no
+    multiple of either N tile (1040, 48)."""
+    x, packed, scale = _q4_operands(cuda, m, k, n)
+    before = q4_matmul.launches
+    got = q4_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert q4_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    want = q4_matmul_ref(x, packed, scale)
+    assert row_rel_err(got, want) <= ROW_RTOL[torch.float32]
+    # bf16 activations take the same path (x is rounded to bf16 either way)
+    assert torch.equal(q4_matmul(x.bfloat16(), packed, scale), got)
+
+
+def test_q4_kernel_reads_a_layer_slice_and_group_64(cuda):
+    """Layer 1 of a stacked (L, K/2, N) leaf, as the engine passes it, and
+    a group of 64 rows (two groups per 128-row chunk pair)."""
+    w = torch.randn(2, 512, 256, device=cuda) / 512 ** 0.5
+    leaf = _quantize_leaf_int4(w, group=64)
+    x = torch.randn(8, 512, device=cuda)
+    p, s = leaf["__kt_q4__"][1], leaf["scale"][1]
+    assert row_rel_err(q4_matmul(x, p, s), q4_matmul_ref(x, p, s)) \
+        <= ROW_RTOL[torch.float32]
+
+
+def test_q4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, packed, scale = _q4_operands(cuda, 8, 512, 256, group=32)
+    with pytest.raises(ValueError, match="group"):
+        q4_matmul(x, packed, scale)                     # group 32 < 64
+    x, packed, scale = _q4_operands(cuda, 8, 512, 256)
+    with pytest.raises(ValueError, match="N"):
+        q4_matmul(x, packed[:, :200], scale[:, :200])   # N % 16 != 0
+    with pytest.raises(TypeError):
+        q4_matmul(x, packed.to(torch.int16), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        q4_matmul(x, packed[:, ::2], scale[:, ::2])
+    with pytest.raises(ValueError, match="is on"):
+        q4_matmul(x, packed.cpu(), scale)
+
+
+def _quant_cache(cuda, b, s, nkv, hd, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    kq, ks = quantize_rows(torch.randn(b, s, nkv, hd, generator=g, device=cuda))
+    vq, vs = quantize_rows(torch.randn(b, s, nkv, hd, generator=g, device=cuda))
+    return kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,nkv,hd", [(8, 2048, 32, 8, 128),
+                                           (3, 128, 6, 2, 128),
+                                           (2, 512, 4, 1, 64)])
+def test_decode_quant_kernel_matches_plain(cuda, dtype, b, s, nh, nkv, hd):
+    kq, ks, vq, vs = _quant_cache(cuda, b, s, nkv, hd)
+    q = torch.randn(b, nh, hd, device=cuda).to(dtype)
+    pos = torch.tensor([0, s - 1, 63, 64, s // 2, 1, s - 2, 5][:b],
+                       dtype=torch.int32, device=cuda)
+    before = decode_attention_quant.launches
+    got = decode_attention_quant(q, kq, ks, vq, vs, pos)
+    torch.cuda.synchronize()
+    assert decode_attention_quant.launches == before + 1
+    assert got.dtype == dtype
+    want = decode_attention_quant_ref(q, kq, ks, vq, vs, pos)
+    assert row_rel_err(got, want) <= ROW_RTOL[dtype]
+
+
+def test_decode_quant_kernel_reads_a_grid_slice_in_place(cuda):
+    """Layer 1 of an (L, B, S, NKV, Hd) int8 grid and its (L, B, S, NKV)
+    scales, as the engine passes them."""
+    kq, ks = quantize_rows(torch.randn(2, 4, 256, 2, 128, device=cuda))
+    q = torch.randn(4, 8, 128, device=cuda).bfloat16()
+    pos = torch.tensor([0, 100, 200, 255], dtype=torch.int32, device=cuda)
+    got = decode_attention_quant(q, kq[1], ks[1], kq[0], ks[0], pos)
+    want = decode_attention_quant_ref(q, kq[1], ks[1], kq[0], ks[0], pos)
+    assert row_rel_err(got, want) <= ROW_RTOL[torch.bfloat16]
+
+
+def test_decode_quant_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    kq, ks, vq, vs = _quant_cache(cuda, 2, 64, 2, 64)
+    q = torch.zeros(2, 4, 64, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        decode_attention_quant(q.half(), kq, ks, vq, vs, pos)
+    with pytest.raises(TypeError):
+        decode_attention_quant(q, kq.float(), ks, vq, vs, pos)
+    with pytest.raises(TypeError):
+        decode_attention_quant(q, kq, ks.double(), vq, vs, pos)
+    with pytest.raises(ValueError, match="pos"):
+        decode_attention_quant(q, kq, ks, vq, vs, pos.long())
+    q96 = torch.zeros(2, 4, 96, device=cuda)
+    kq96 = torch.zeros(2, 64, 2, 96, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention_quant(q96, kq96, ks, kq96, vs, pos)
+
+
+def test_quant_wrappers_capture_in_a_cuda_graph(cuda):
+    """No host sync inside either wrapper: both record into a graph, and a
+    replay recomputes from the inputs' new values."""
+    x, packed, scale = _q4_operands(cuda, 8, 512, 256)
+    kq, ks, vq, vs = _quant_cache(cuda, 2, 128, 2, 64)
+    q = torch.randn(2, 4, 64, device=cuda)
+    pos = torch.tensor([5, 127], dtype=torch.int32, device=cuda)
+    q4_matmul(x, packed, scale)                       # build and load first
+    decode_attention_quant(q, kq, ks, vq, vs, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n4, n2 = q4_matmul.launches, decode_attention_quant.launches
+    with torch.cuda.graph(graph):
+        y = q4_matmul(x, packed, scale)
+        o = decode_attention_quant(q, kq, ks, vq, vs, pos)
+    assert (q4_matmul.launches, decode_attention_quant.launches) == (n4 + 1, n2 + 1)
+    x.mul_(2.0)
+    q.mul_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert row_rel_err(y, q4_matmul_ref(x, packed, scale)) <= ROW_RTOL[torch.float32]
+    assert row_rel_err(o, decode_attention_quant_ref(q, kq, ks, vq, vs, pos)) \
+        <= ROW_RTOL[torch.float32]
+
+
+def test_quant_engine_kernel_path_matches_plain_path(cuda):
+    """A narrow Llama in fp32 on the card, int4 weights (every projection
+    through B3) and an int8 KV cache: the kernel path (auto: A1, B3, B2)
+    gives the greedy tokens of the plain path (xla: B3 still, then the
+    einsum decode), and the launch counts are exact."""
+    outs, counts = [], []
+    for impl in ("auto", "xla"):
+        cfg = LlamaConfig.tiny(dtype=torch.float32, attn_impl=impl, dim=256,
+                               ffn_dim=512, n_heads=4, n_kv_heads=2)
+        params = quantize_params_int4(llama_init(cfg, seed=3, device=cuda))
+        eng = GenerationEngine(params, cfg, slots=2, max_len=160,
+                               prefill_buckets=(8, 128), quantize_kv=True,
+                               device=cuda)
+        before = (flash_attention.launches, q4_matmul.launches,
+                  decode_attention_quant.launches, decode_attention.launches)
+        hs = [eng.submit(p, max_new_tokens=6)
+              for p in ([5, 17, 42], list(range(1, 101)), [9, 8])]
+        while eng.step():
+            pass
+        torch.cuda.synchronize()
+        outs.append([h.result(timeout=0) for h in hs])
+        after = (flash_attention.launches, q4_matmul.launches,
+                 decode_attention_quant.launches, decode_attention.launches)
+        counts.append((tuple(a - b for a, b in zip(after, before)),
+                       eng.stats().decode_steps))
+    assert outs[0] == outs[1]
+    (auto, steps), _ = counts
+    # 3 prefills (one in the 128 bucket through A1); 2 layers; 7 B3 per
+    # layer plus the 512-wide head, per prefill and per decode step
+    assert auto == (2, (2 * 7 + 1) * (3 + steps), 2 * steps, 0)

@@ -195,7 +195,9 @@ def test_submit_validation(params):
 
 
 @pytest.mark.parametrize("ctor_kw", [
-    {"quantize_kv": True}, {"auto_prefix": True}, {"prefill_chunk": 64},
+    # chunked prefill stays unported on the int8 grid too
+    {"quantize_kv": True, "prefill_chunk": 64}, {"auto_prefix": True},
+    {"prefill_chunk": 64},
     {"aot_cache": object()}, {"mesh": object()},
 ])
 def test_unported_engine_knobs_raise(params, ctor_kw):
