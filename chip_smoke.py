@@ -5,16 +5,24 @@
 
 1. Prints the card's name and power limit; fails without CUDA.
 2. Builds the CUDA kernels from csrc/ through ``_build.load`` (one nvcc per
-   source, all started together) and prints the total build time.
+   source, all started together) and prints the total build time. Fails
+   unless the SASS of the flash_fwd and flash_bwd libraries holds wgmma
+   (HGMMA) and TMA loads (UTMALDG), and prints the tensor-core kernels'
+   registers and local memory (spills).
 3. Holds each kernel against its plain PyTorch version, row by row
    (kubetorch_tpu_torch/ops/tolerance.py), in bf16 and fp32, and times
    kernel, plain version and the nearest PyTorch call (SDPA or a cuBLAS
    matmul, a yardstick the port never calls) in CUDA graphs beside the
-   card's least time for the same work: the flash forward (A1) and
-   flash-decode (B1) at the engine's shapes; the int8 flash-decode (B2) at
-   the same grid; the int4 matmul (B3) at Llama-3-8B's projections, 8
-   decode rows, a ragged 300 and a 2048-row prefill; A1 with its LSE, dQ
-   (A2) and dK/dV (A3) at the training shape and at head dim 128.
+   card's least time for the same work: the flash forward (A1, bf16 at
+   every prefill bucket of the engine and a ragged T) and flash-decode
+   (B1) at the engine's shapes; the int8 flash-decode (B2) at the same
+   grid; the int4 matmul (B3) at Llama-3-8B's projections, 8 decode rows,
+   a ragged 300 and a 2048-row prefill; A1 with its LSE, dQ (A2) and dK/dV
+   (A3) at the training shape and at head dim 128. For the tensor-core A1
+   and A3 also TFLOP/s of the counted work, the share of the bound, the
+   fp32-FMA body's time on fp32 inputs of the same shape (measured), and,
+   on the printed line only, the previous design's bf16 time (quoted from
+   PERF.md, not measured here).
 4. Serves Llama-3-8B at full width (random weights from a seed) through
    GenerationEngine: 8 slots, max_len 2048, greedy, 12 requests with
    prompts over every prefill bucket, admitted while others decode. Checks
@@ -64,6 +72,15 @@ ENGINE_PROMPT_LENS = (40, 128, 200, 256, 300, 480, 512, 700, 1000, 1024,
                       1500, 1990)
 MAX_NEW = 32
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "quant_matmul")
+# the engine's prefill buckets (the last is max_len) and a ragged length
+A1_BUCKETS, A1_RAGGED = (128, 256, 512, 1024, 2048), 1000
+# the bf16 times of A1 and A3 before the tensor-core redesign, when they
+# ran the fp32-FMA bodies: PERF.md section 6 (H100 80GB HBM3, 700 W,
+# chip_smoke.py of PR 2, within 3% in PR 3's runs); A1 at Hd 128 is the
+# serving T=1024 time, the same shape without the LSE
+PREV_DESIGN_MS = {"fwd Hd=64": 3.395, "fwd Hd=128": 0.627, "dkv Hd=64": 6.52,
+                  "dkv Hd=128": 1.372}
+PREV_TRAIN_TOKENS_PER_S = 14127   # the same source, PR 2's training phase
 # training: batch x sequence, warm-up and timed steps, the CE chunk
 TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, TRAIN_CHUNK = 4, 2048, 2, 5, 256
 # kernel-path vs plain-path checks of the training phase:
@@ -71,15 +88,16 @@ TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, TRAIN_CHUNK = 4, 2048, 2, 5, 256
 #   L2. Both paths compute the same fp32 math (TF32 off); they differ in
 #   the order of the attention sums (1e-6 relative per op), carried back
 #   through two layers;
-# - loss, bf16 at full depth, B=1, S=2048: absolute. The kernel keeps P in
-#   fp32 where the plain attention rounds it to bf16; the per-token CE moves
-#   by a few 1e-3 and the mean over 2,048 tokens averages that down.
+# - loss, bf16 at full depth, B=1, S=2048: absolute. The kernel keeps ~16
+#   bits of P (two bf16 halves) where the plain attention rounds it to
+#   bf16; the per-token CE moves by a few 1e-3 and the mean over 2,048
+#   tokens averages that down.
 GRAD_REL_L2 = 1e-4
 LOSS_ABS = 2e-2
 # kernel path vs plain path of the bf16 engines, first-token logits,
-# relative L2: the two differ in attention numerics (fp32 P in the flash
-# kernel, P rounded to bf16 in the plain cached attention) and then run
-# the same bf16 layers; 32 layers of bf16 rounding keep the logits within
+# relative L2: the two differ in attention numerics (~16 bits of P in the
+# flash kernel, P rounded to bf16 in the plain cached attention) and then
+# run the same bf16 layers; 32 layers of bf16 rounding keep the logits within
 # a few percent of each other. The int4 engine's plain path also reads the
 # weights rounded to bf16 (q * s in bf16, 2^-9 relative per weight) where
 # B3 scales in fp32: a further ~1e-3 of the norm.
@@ -173,6 +191,33 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rate_line(flops: float, ms: float, bound_ms: float) -> dict:
+    """TFLOP/s of the counted work and the share of the bound reached."""
+    return dict(tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
+
+
+def check_tensor_core_sass(_build) -> None:
+    """The flash libraries must hold wgmma (HGMMA) and TMA loads (UTMALDG):
+    a bf16 dispatch that reached the FMA body would leave neither. Prints
+    each tensor-core kernel's registers and local memory (spills)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    for name in ("flash_fwd", "flash_bwd"):
+        lib = str(_build.library_path(name))
+        sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                              text=True, check=True).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        print(f"sass {name}: {counts}", flush=True)
+        if not all(counts.values()):
+            fail(f"{name}: SASS lacks wgmma or TMA instructions {counts}")
+        usage = subprocess.run([tool, "--dump-resource-usage", lib],
+                               capture_output=True, text=True, check=True).stdout
+        lines = usage.splitlines()
+        for i, line in enumerate(lines):     # "Function <name>:" then usage
+            if line.strip().startswith("Function") and "sm90" in line:
+                res = lines[i + 1].strip() if i + 1 < len(lines) else ""
+                print(f"resources {name}: {line.strip()} {res}", flush=True)
+
+
 def compare(name, got, want) -> tuple:
     """Kernel against plain version, per row (ops/tolerance.py): fails the
     run past the row tolerance. Returns (max_abs_err, max row rel err)."""
@@ -205,33 +250,51 @@ def compare_grad(name, got, want) -> tuple:
 
 
 def check_flash(torch, F, ops_attn):
-    """A1 at B=1, N=32, NKV=8, Hd=128, causal, at each prefill T: bf16 (the
-    engine's type) and fp32 against the plain version, then bf16 times."""
+    """A1 at B=1, N=32, NKV=8, Hd=128, causal: bf16 (the engine's type,
+    the tensor-core body) at every prefill bucket and a ragged T, fp32 (the
+    FMA body) at 128, 512 and 1024, each against the plain version; bf16
+    times at every length. Returns the record of T=1024."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rec = None
-    for t in (128, 512, 1024):
+    for t in (*A1_BUCKETS, A1_RAGGED):
         q = torch.randn(1, t, 32, 128, generator=gen, device="cuda")
         k = torch.randn(1, t, 8, 128, generator=gen, device="cuda")
         v = torch.randn(1, t, 8, 128, generator=gen, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-            got = ops_attn.flash_attention(q, k, v, causal=True)
-            want = ops_attn.flash_attention_ref(q, k, v, causal=True)
+        dtypes = (torch.float32, torch.bfloat16) if t in (128, 512, 1024) \
+            else (torch.bfloat16,)
+        for dtype in dtypes:
+            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+            got = ops_attn.flash_attention(qd, kd, vd, causal=True)
+            want = ops_attn.flash_attention_ref(qd, kd, vd, causal=True)
             err, rel = compare(f"flash_fwd T={t}", got, want)
-        ms = time_ms(torch, lambda: ops_attn.flash_attention(q, k, v))
-        plain = time_ms(torch, lambda: ops_attn.flash_attention_ref(q, k, v))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            del got, want
+        ms = time_ms(torch, lambda: ops_attn.flash_attention(qd, kd, vd))
+        plain = time_ms(torch, lambda: ops_attn.flash_attention_ref(qd, kd, vd))
+        qt, kt, vt = (x.transpose(1, 2) for x in (qd, kd, vd))
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
         nbytes = (2 * 32 + 2 * 8) * t * 128 * 2
         flops = 4 * 32 * 128 * t * (t + 1) / 2
         b_ms, b_by = bound(nbytes, flops)
+        rate = rate_line(flops, ms, b_ms)
+        extra = ""
+        if t == 1024:
+            fp32_ms = time_ms(torch, lambda: ops_attn.flash_attention(q, k, v))
+            prev = PREV_DESIGN_MS["fwd Hd=128"]
+            extra = (f" fp32_fma_body_ms={fp32_ms} (fp32 inputs, measured) "
+                     f"prev_design_bf16_ms={prev} (fp32-FMA body in bf16, "
+                     f"PERF.md, not this run) speedup_vs_prev={prev / ms}")
         print(f"kernel flash_fwd T={t} bf16: ms={ms} plain_ms={plain} "
-              f"sdpa_ms={lib} bound_ms={b_ms} ({b_by})", flush=True)
-        rec = dict(max_abs_err=err, max_row_rel_err=rel, ms=ms,
-                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib,
-                   shape=f"B=1 T={t} N=32 NKV=8 Hd=128 bf16 causal")
+              f"sdpa_ms={lib} bound_ms={b_ms} ({b_by}) "
+              f"tflops={rate['tflops']} bound_share={rate['bound_share']}"
+              f"{extra}", flush=True)
+        if t == 1024:
+            rec = dict(max_abs_err=err, max_row_rel_err=rel, ms=ms,
+                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib, **rate, fp32_fma_body_ms=fp32_ms,
+                       shape=f"B=1 T={t} N=32 NKV=8 Hd=128 bf16 causal")
+        del q, k, v, qd, kd, vd, qt, kt, vt
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -432,17 +495,29 @@ def check_train_kernels(torch, F, ops_attn):
                  "dkv": (t_dkv, p_dkv, lib_bwd)}
         lib_name = {"fwd": "SDPA forward", "dq": "SDPA backward, dQ dK dV",
                     "dkv": "SDPA backward, dQ dK dV"}
+        fma = fma_body_times(torch, ops_attn, base, scale)
         for name, (nbytes, flops) in work.items():
             b_ms, b_by = bound(nbytes, flops)
             ms, plain, lib = times[name]
+            rate = rate_line(flops, ms, b_ms)
+            redesign = {}
+            if name in fma:      # A1 and A3: the tensor-core bodies
+                redesign = dict(fp32_fma_body_ms=fma[name])
             print(f"kernel flash_{name} {shape} bf16 causal: ms={ms} "
                   f"plain_ms={plain} library_ms={lib} ({lib_name[name]}) "
                   f"bound_ms={b_ms} "
-                  f"({b_by}; {nbytes} bytes, {flops} flops)", flush=True)
+                  f"({b_by}; {nbytes} bytes, {flops} flops) "
+                  f"tflops={rate['tflops']} bound_share={rate['bound_share']}"
+                  + (f" fp32_fma_body_ms={fma[name]} (fp32 inputs, measured)"
+                     f" prev_design_bf16_ms={PREV_DESIGN_MS[f'{name} Hd={hd}']}"
+                     f" (fp32-FMA body in bf16, PERF.md, not this run)"
+                     if redesign else ""),
+                  flush=True)
             if hd == 64:
                 recs[name] = dict(max_abs_err=errs[name][0], ms=ms,
                                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                   library_ms=lib, bytes=nbytes, flops=flops,
+                                  **rate, **redesign,
                                   shape=f"{shape} bf16 causal")
         print(f"kernel flash_fwd {shape} bf16 causal: ms_without_lse={t_fwd} "
               f"ms_with_lse={t_lse}", flush=True)
@@ -452,6 +527,21 @@ def check_train_kernels(torch, F, ops_attn):
         del q, k, v, do, lse, delta, base
         torch.cuda.empty_cache()
     return recs
+
+
+def fma_body_times(torch, ops_attn, base, scale) -> dict:
+    """A1 with its LSE and A3 on fp32 inputs of the same shape: their
+    fp32-FMA bodies, the design the bf16 kernels had before the tensor-core
+    redesign (fp32 loads, so not that design's bf16 time)."""
+    q, k, v, do = base
+    out, lse = ops_attn._launch(q, k, v, True, scale, need_lse=True)
+    delta = ops_attn.attention_delta(out, do)
+    times = {"fwd": time_ms(torch, lambda: ops_attn._launch(
+                 q, k, v, True, scale, need_lse=True), iters=5),
+             "dkv": time_ms(torch, lambda: ops_attn.flash_attention_bwd_dkv(
+                 q, k, v, do, lse, delta), iters=5)}
+    del out, lse, delta
+    return times
 
 
 def sdpa_times(torch, F, q, k, v, do):
@@ -858,8 +948,9 @@ def drive_training(torch, ops_attn, card):
           f"{TRAIN_STEPS} steps of {L} layers", flush=True)
     print(f"train: tokens_per_s={tps} ms_per_step={dt / TRAIN_STEPS * 1e3} "
           f"mfu={mfu} (6P + 12*L*D*S flops per token over 989 TFLOP/s) "
-          f"peak_memory_gb={peak_gb} batch={TRAIN_B}x{TRAIN_S} card={card}",
-          flush=True)
+          f"peak_memory_gb={peak_gb} batch={TRAIN_B}x{TRAIN_S} card={card} "
+          f"(before the tensor-core A1/A3, PERF.md: {PREV_TRAIN_TOKENS_PER_S} "
+          f"tokens/s; no claim)", flush=True)
 
     def one_step():
         nonlocal state
@@ -937,6 +1028,7 @@ def main() -> None:
         list(ex.map(_build.load, SOURCES))
     print(f"build: {time.perf_counter() - t0:.1f}s for {len(SOURCES)} sources",
           flush=True)
+    check_tensor_core_sass(_build)
 
     flash = check_flash(torch, F, ops_attn)
     dec = check_decode(torch, F, ops_dec)

@@ -9,9 +9,9 @@
 //   dQ = dS.K                      (one block per q tile, head, batch)
 //   dV = P^T.dO, dK = dS^T.Q       (one block per k tile, kv-head, batch)
 // Causal tiles above the diagonal are skipped and the diagonal tile is
-// masked with -1e30 before exp, as in the forward. Numerics follow the
-// Pallas bodies: q, k, v and dO widen to fp32, every product runs in fp32,
-// each output rounds to its input's type once.
+// masked with -1e30 before exp, as in the forward. The Pallas bodies widen
+// q, k, v and dO to fp32 and keep P and dS unrounded; each output rounds to
+// its input's type once.
 //
 // The dK/dV block owns its k tile's sums for the whole GQA group: it loops
 // over every query head h = kvh * group + g of its kv-head and every q tile
@@ -22,14 +22,34 @@
 //
 // What bounds it on the H100: the causal backward does 14 * Hd flops per
 // (q, k) pair (dQ 6, dK/dV 8) against ~8 * S * Hd bytes per head, so
-// operations bound it at every training shape. This first version runs
-// plain fp32 FMAs on CUDA cores (67 TFLOP/s peak), like the forward, to
-// keep the reference's fp32 products; it does not reach the bf16 tensor
-// core bound. What the design does about it: 64x64 tiles, each thread a 4x4
-// block of logits and dP and a 4 x (Hd/16) block of each accumulator in
-// registers; all tile rows padded by one 32-bit word in shared memory so
-// the column-strided reads of the logit loops hit distinct banks; heaviest
-// causal tiles scheduled first. wgmma/TMA are later work.
+// operations bound it at every training shape.
+//
+// dK/dV in bf16 at head dim 64 and 128: bwd_dkv_sm90, on the tensor cores.
+// One block per (64-key tile, kv-head, batch); one consumer warpgroup owns
+// the 64 key rows and keeps the dK and dV accumulators (64 x Hd fp32 each)
+// in registers for the block's life; one producer warp TMA-loads K and V
+// once, then streams (Q, dO) tiles and their LSE and delta rows through a
+// ring of 2 stages with a full/empty mbarrier pair each. Per q tile, four
+// wgmma products: S^T = K.Q^T and dP^T = V.dO^T (both operands in shared
+// memory, bf16 x bf16 exact with fp32 sums); P^T and dS^T in fp32
+// registers, masked as the Pallas body masks, with LSE and delta indexed
+// by column; then dV += P^T.dO and dK += dS^T.Q as register-A wgmma, each
+// over the hi and the lo bf16 half of its fp32 operand (P or dS = hi + lo,
+// ~16 significant bits; 12*Hd flops per pair instead of 8), dO and Q read
+// MN-major from the same ring tiles. Register pressure: the two
+// accumulators take Hd values per thread (128 at Hd 128), so at Hd 128 the
+// q tile is 32 rows (S^T and dP^T 16 registers each) and at Hd 64 it is 64
+// rows (32 each); the dS and P fragments replace S^T and dP^T in place.
+// With one consumer warpgroup that fits without setmaxnreg: ptxas (CUDA
+// 12.9, sm_90a, -Xptxas -v) gives 173 registers a thread at Hd 64 and 200
+// at Hd 128, no spill stores or loads.
+//
+// dQ (every type and head dim), and dK/dV in fp32 or at bf16 head dim 16 or
+// 32: the first port's bodies, plain fp32 FMAs on CUDA cores (67 TFLOP/s
+// peak), 64x64 tiles, each thread a 4x4 block of logits and dP and a
+// 4 x (Hd/16) block of each accumulator in registers; all tile rows padded
+// by one 32-bit word in shared memory so the column-strided reads of the
+// logit loops hit distinct banks; heaviest causal tiles scheduled first.
 //
 // Layout: q/dO/dQ (B, S, N, Hd), k/v/dK/dV (B, S, NKV, Hd), read and
 // written in place through their strides; lse and delta fp32 (B, N, S),
@@ -39,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -383,17 +405,277 @@ cudaError_t launch_dkv(const BwdParams& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool DQ>
-cudaError_t dispatch(const BwdParams& p, int dtype, int B, int HD, cudaStream_t st) {
+// ---------------------------------------------------------------------------
+// dK/dV in bf16 at head dim 64 / 128: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int CONSUMERS = 128;                // one warpgroup: 64 key rows
+constexpr int SM90_THREADS = CONSUMERS + 32;  // + one producer warp
+constexpr int STAGES = 2;
+
+template <int HD>
+struct DkvSmem {  // byte offsets from a 1024-byte-aligned base
+  static constexpr int BQ = HD == 64 ? 64 : 32;  // q rows per ring stage
+  static constexpr int KV_BYTES = BK * HD * 2;   // HD/64 chunks of BK x 128 B
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int K = 0;
+  static constexpr int V = K + KV_BYTES;
+  static constexpr int Q = V + KV_BYTES;                 // + stage * Q_BYTES
+  static constexpr int DO = Q + STAGES * Q_BYTES;        // + stage * Q_BYTES
+  static constexpr int STATS = DO + STAGES * Q_BYTES;    // [stage][lse, delta][BQ] fp32
+  static constexpr int BAR = STATS + STAGES * 2 * BQ * 4;  // kv_full, full[], empty[]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(SM90_THREADS)
+    bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 BwdParams p) {
+  using L = DkvSmem<HD>;
+  using namespace sm90;
+  constexpr int TQ = L::BQ;
+  constexpr int CHUNKS = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + L::STATS);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int kt = blockIdx.x;  // causal: k tile 0 sees every q tile, so first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = p.N / p.NKV;
+  const int k0 = kt * BK;
+  const int S = p.S;
+  const int n_qt = (S + TQ - 1) / TQ;
+  // first q tile whose last row reaches k0 (the Pallas kernel's
+  // qb * block_q + block_q - 1 >= kj * block_k)
+  const int qt0 = p.causal ? k0 / TQ : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane: its LSE/delta stores
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // producer warp
+    const int lane = threadIdx.x - CONSUMERS;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+      for (int c = 0; c < CHUNKS; ++c) {
+        tma_load_4d(smem + L::K + c * BK * 128, &tk, kv_full, c * 64, kvh, k0, b);
+        tma_load_4d(smem + L::V + c * BK * 128, &tv, kv_full, c * 64, kvh, k0, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int g = 0; g < group; ++g) {
+      const int h = kvh * group + g;
+      const long long stat0 = ((long long)b * p.N + h) * S;
+      for (int qt = qt0; qt < n_qt; ++qt) {
+        const int q0 = qt * TQ;
+        mbar_wait(&empty[stage], phase ^ 1);
+        // rows past S read 0: their q and dO rows are zeros, so they
+        // contribute dS = 0 and P.dO = 0
+        float* st = stats + stage * 2 * TQ;
+        for (int r = lane; r < TQ; r += 32) {
+          const bool live = q0 + r < S;
+          st[r] = live ? p.lse[stat0 + q0 + r] : 0.f;
+          st[TQ + r] = live ? p.delta[stat0 + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage], 2 * L::Q_BYTES);
+          for (int c = 0; c < CHUNKS; ++c) {
+            tma_load_4d(smem + L::Q + stage * L::Q_BYTES + c * TQ * 128, &tq, &full[stage],
+                        c * 64, h, q0, b);
+            tma_load_4d(smem + L::DO + stage * L::Q_BYTES + c * TQ * 128, &tdo, &full[stage],
+                        c * 64, h, q0, b);
+          }
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: key rows kr0 and kr0 + 8 of the tile, query
+  // columns 8j + 2c of each q tile
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int c2 = 2 * (lane % 4);
+  const int kr0 = k0 + 16 * warp + lane / 4;
+  const int kr1 = kr0 + 8;
+  const uint32_t k_addr = smem_addr(smem + L::K);
+  const uint32_t v_addr = smem_addr(smem + L::V);
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int g = 0; g < group; ++g) {
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * TQ;
+      mbar_wait(&full[stage], phase);
+      const uint32_t q_addr = smem_addr(smem + L::Q + stage * L::Q_BYTES);
+      const uint32_t do_addr = smem_addr(smem + L::DO + stage * L::Q_BYTES);
+      const float* lse_s = stats + stage * 2 * TQ;
+      const float* delta_s = lse_s + TQ;
+
+      // S^T = K.Q^T and dP^T = V.dO^T: k steps of 16 along the head dim
+      float st[TQ / 2], dpt[TQ / 2];
+#pragma unroll
+      for (int i = 0; i < TQ / 2; ++i) st[i] = dpt[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const uint32_t off = (ks % 4) * 32;  // within a 128-byte swizzled row
+        wgmma_ss(st, desc_sw128(k_addr + (ks / 4) * BK * 128 + off, 16),
+                 desc_sw128(q_addr + (ks / 4) * TQ * 128 + off, 16), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const uint32_t off = (ks % 4) * 32;
+        wgmma_ss(dpt, desc_sw128(v_addr + (ks / 4) * BK * 128 + off, 16),
+                 desc_sw128(do_addr + (ks / 4) * TQ * 128 + off, 16), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T in place, masked where key > query or key >= S
+#pragma unroll
+      for (int j = 0; j < TQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = 8 * j + c2 + e;
+          const int qc = q0 + qi;
+          const float lse = lse_s[qi];
+          const float delta = delta_s[qi];
+          float x0 = st[4 * j + e] * p.scale;
+          float x1 = st[4 * j + 2 + e] * p.scale;
+          if (kr0 >= S || (p.causal && kr0 > qc)) x0 = NEG_INF;
+          if (kr1 >= S || (p.causal && kr1 > qc)) x1 = NEG_INF;
+          const float p0 = expf(x0 - lse);
+          const float p1 = expf(x1 - lse);
+          st[4 * j + e] = p0;
+          st[4 * j + 2 + e] = p1;
+          dpt[4 * j + e] = p0 * (dpt[4 * j + e] - delta) * p.scale;
+          dpt[4 * j + 2 + e] = p1 * (dpt[4 * j + 2 + e] - delta) * p.scale;
+        }
+      }
+
+      // dV += P^T.dO and dK += dS^T.Q, each as hi + lo; dO and Q MN-major
+      // (head dim contiguous), a k16 step is 16 query rows
+      uint32_t ph[TQ / 4], pl[TQ / 4], sh[TQ / 4], sl[TQ / 4];
+      split_acc(st, ph, pl);
+      split_acc(dpt, sh, sl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TQ / 16; ++kk) {
+        const uint64_t ddo = desc_sw128(do_addr + kk * 16 * 128, TQ * 128);
+        const uint64_t dq = desc_sw128(q_addr + kk * 16 * 128, TQ * 128);
+        wgmma_rs(dv, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], ddo);
+        wgmma_rs(dv, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], ddo);
+        wgmma_rs(dk, sh[4 * kk], sh[4 * kk + 1], sh[4 * kk + 2], sh[4 * kk + 3], dq);
+        wgmma_rs(dk, sl[4 * kk], sl[4 * kk + 1], sl[4 * kk + 2], sl[4 * kk + 3], dq);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(ph);
+      fence_regs(pl);
+      fence_regs(sh);
+      fence_regs(sl);
+      mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + b * p.dks[0] + kvh * p.dks[2];
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + b * p.dvs[0] + kvh * p.dvs[2];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = 8 * j + c2;
+    if (kr0 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + (long long)kr0 * p.dks[1] + col) =
+          __floats2bfloat162_rn(dk[4 * j], dk[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + (long long)kr0 * p.dvs[1] + col) =
+          __floats2bfloat162_rn(dv[4 * j], dv[4 * j + 1]);
+    }
+    if (kr1 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + (long long)kr1 * p.dks[1] + col) =
+          __floats2bfloat162_rn(dk[4 * j + 2], dk[4 * j + 3]);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + (long long)kr1 * p.dvs[1] + col) =
+          __floats2bfloat162_rn(dv[4 * j + 2], dv[4 * j + 3]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_dkv_sm90(const BwdParams& p, int B, cudaStream_t stream) {
+  using L = DkvSmem<HD>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::encode_bshd(&tq, p.q, B, p.S, p.N, HD, p.qs, L::BQ);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tdo, p.dout, B, p.S, p.N, HD, p.dos, L::BQ);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tk, p.k, B, p.S, p.NKV, HD, p.ks, BK);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tv, p.v, B, p.S, p.NKV, HD, p.vs, BK);
+  if (err != cudaSuccess) return err;
+  const int smem = L::BYTES + 1024;  // + alignment slack
+  err = cudaFuncSetAttribute(bwd_dkv_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.S + BK - 1) / BK, p.NKV, B);
+  bwd_dkv_sm90<HD><<<grid, SM90_THREADS, smem, stream>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
+// Which body serves dK/dV at (dtype, head dim): the dispatch and the query
+// kt_flash_bwd_dkv_body read this one predicate.
+bool dkv_takes_sm90(int dtype, int HD) { return dtype == 1 && (HD == 64 || HD == 128); }
+
+cudaError_t dispatch_dq(const BwdParams& p, int dtype, int B, int HD, cudaStream_t st) {
   switch (dtype * 1000 + HD) {
-    case 1128: return DQ ? launch_dq<__nv_bfloat16, 128>(p, B, st) : launch_dkv<__nv_bfloat16, 128>(p, B, st);
-    case 1064: return DQ ? launch_dq<__nv_bfloat16, 64>(p, B, st) : launch_dkv<__nv_bfloat16, 64>(p, B, st);
-    case 1032: return DQ ? launch_dq<__nv_bfloat16, 32>(p, B, st) : launch_dkv<__nv_bfloat16, 32>(p, B, st);
-    case 1016: return DQ ? launch_dq<__nv_bfloat16, 16>(p, B, st) : launch_dkv<__nv_bfloat16, 16>(p, B, st);
-    case 128: return DQ ? launch_dq<float, 128>(p, B, st) : launch_dkv<float, 128>(p, B, st);
-    case 64: return DQ ? launch_dq<float, 64>(p, B, st) : launch_dkv<float, 64>(p, B, st);
-    case 32: return DQ ? launch_dq<float, 32>(p, B, st) : launch_dkv<float, 32>(p, B, st);
-    case 16: return DQ ? launch_dq<float, 16>(p, B, st) : launch_dkv<float, 16>(p, B, st);
+    case 1128: return launch_dq<__nv_bfloat16, 128>(p, B, st);
+    case 1064: return launch_dq<__nv_bfloat16, 64>(p, B, st);
+    case 1032: return launch_dq<__nv_bfloat16, 32>(p, B, st);
+    case 1016: return launch_dq<__nv_bfloat16, 16>(p, B, st);
+    case 128: return launch_dq<float, 128>(p, B, st);
+    case 64: return launch_dq<float, 64>(p, B, st);
+    case 32: return launch_dq<float, 32>(p, B, st);
+    case 16: return launch_dq<float, 16>(p, B, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_dkv(const BwdParams& p, int dtype, int B, int HD, cudaStream_t st) {
+  if (dkv_takes_sm90(dtype, HD))
+    return HD == 64 ? launch_dkv_sm90<64>(p, B, st) : launch_dkv_sm90<128>(p, B, st);
+  switch (dtype * 1000 + HD) {
+    case 1032: return launch_dkv<__nv_bfloat16, 32>(p, B, st);
+    case 1016: return launch_dkv<__nv_bfloat16, 16>(p, B, st);
+    case 128: return launch_dkv<float, 128>(p, B, st);
+    case 64: return launch_dkv<float, 64>(p, B, st);
+    case 32: return launch_dkv<float, 32>(p, B, st);
+    case 16: return launch_dkv<float, 16>(p, B, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -436,7 +718,7 @@ extern "C" int kt_flash_bwd_dq(const void* q, const void* k, const void* v,
   p.dq = dq;
   for (int i = 0; i < 3; ++i) p.dqs[i] = strides[12 + i];
   if (B <= 0 || S <= 0) return cudaSuccess;
-  return dispatch<true>(p, dtype, B, HD, static_cast<cudaStream_t>(stream));
+  return dispatch_dq(p, dtype, B, HD, static_cast<cudaStream_t>(stream));
 }
 
 // As kt_flash_bwd_dq; strides: q, k, v, dout, dk, dv, 18 values.
@@ -453,5 +735,11 @@ extern "C" int kt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     p.dvs[i] = strides[15 + i];
   }
   if (B <= 0 || S <= 0) return cudaSuccess;
-  return dispatch<false>(p, dtype, B, HD, static_cast<cudaStream_t>(stream));
+  return dispatch_dkv(p, dtype, B, HD, static_cast<cudaStream_t>(stream));
+}
+
+// 1 if dK/dV at (dtype, head dim) runs on the tensor-core body, 0 if on the
+// fp32-FMA body.
+extern "C" int kt_flash_bwd_dkv_body(int dtype, int HD) {
+  return dkv_takes_sm90(dtype, HD) ? 1 : 0;
 }

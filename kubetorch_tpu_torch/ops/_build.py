@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``kubetorch_tpu_torch/_build/`` under a name keyed by
-a hash of the source and the flags, so an edited source rebuilds and an
+a hash of the source, every header in ``csrc/`` (``*.cuh``, included with
+``-I csrc``) and the flags, so an edited source or header rebuilds and an
 unchanged one loads at once. The build runs at first use, never at import;
 ``load`` is the one entry, and callers that need several libraries at once
 (``chip_smoke.py``) call it from several threads, one ``nvcc`` each. No
@@ -48,8 +49,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -65,7 +68,7 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp,
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
                                str(CSRC / f"{name}.cu")],
                               capture_output=True, text=True)
         if proc.returncode != 0:

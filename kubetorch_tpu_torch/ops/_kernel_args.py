@@ -15,7 +15,8 @@ def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                        device: torch.device) -> None:
     """What every kernel needs of a tensor it reads through strides: the
     same device and dtype as the rest, a unit-stride last dim, and 16-byte
-    alignment of every row it loads (base pointer and leading strides)."""
+    alignment of every row it loads (base pointer and leading strides; TMA
+    refuses anything else)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -9,6 +9,14 @@ plain versions.
 - A3, ``csrc/flash_bwd.cu:kt_flash_bwd_dkv``: dK and dV, replacing
   ``_bwd_dkv_kernel``.
 
+A1 and A3 in bf16 at head dim 64 and 128 run on Hopper's tensor cores
+(wgmma fed by TMA, ``csrc/sm90.cuh``), with the fp32 P and dS of the
+Pallas bodies split into two bf16 halves; every other (dtype, head dim)
+runs the fp32-FMA bodies. :func:`tensor_core_body` says which, from the
+same predicate the C dispatch reads. TMA needs each operand's base address
+and leading strides in multiples of 16 bytes; the wrappers raise, naming
+the tensor, on one that is not.
+
 The public layout is the JAX package's, q (B, S, N, Hd) and k/v
 (B, S, NKV, Hd) with NKV | N; the kernels read them in place through their
 strides, with no head-major copy. LSE and delta are fp32 (B, N, S).
@@ -154,6 +162,17 @@ def _fn(lib_name: str, sym: str, n_ptrs: int):
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def tensor_core_body(kernel: str, dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether A1 (``kernel="fwd"``) or A3 (``"dkv"``) runs its tensor-core
+    body at this dtype and head dim (else its fp32-FMA body). Loads the
+    library."""
+    lib_name, sym = {"fwd": ("flash_fwd", "kt_flash_fwd_body"),
+                     "dkv": ("flash_bwd", "kt_flash_bwd_dkv_body")}[kernel]
+    fn = getattr(_build.load(lib_name), sym)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return bool(fn(DTYPE_CODES[dtype], head_dim))
 
 
 def _check_operands(q, k, v, **more) -> None:

@@ -17,7 +17,10 @@ rounding noise can step either way on the two devices (on an H100, one of
 16,384 wq entries ended 3.1e-5 apart, against steps of ~1.5e-4); such
 outliers weigh ~1e-3 of a leaf's change, a wrong update rule all of it.
 The int4 matmul (fp32 output) and the int8 flash-decode take the same
-per-row tolerances as the other kernels.
+per-row tolerances as the other kernels. A1 and A3 in bf16 at head dim 64
+and 128 run their tensor-core bodies (wgmma + TMA, P and dS split into
+two bf16 halves) and take the bf16 tolerances; fp32 runs the FMA bodies
+and takes fp32's.
 """
 
 import dataclasses
@@ -28,7 +31,7 @@ import torch
 from kubetorch_tpu_torch.models import common
 from kubetorch_tpu_torch.models.llama import (LlamaConfig, llama_init,
                                               llama_loss_chunked)
-from kubetorch_tpu_torch.ops.attention import (attention_delta,
+from kubetorch_tpu_torch.ops.attention import (_launch, attention_delta,
                                                flash_attention,
                                                flash_attention_bwd_dkv,
                                                flash_attention_bwd_dkv_ref,
@@ -36,7 +39,8 @@ from kubetorch_tpu_torch.ops.attention import (attention_delta,
                                                flash_attention_bwd_dq_ref,
                                                flash_attention_bwd_ref,
                                                flash_attention_fwd_ref,
-                                               flash_attention_ref)
+                                               flash_attention_ref,
+                                               tensor_core_body)
 from kubetorch_tpu_torch.models.quant import (_quantize_leaf_int4,
                                               quantize_params_int4)
 from kubetorch_tpu_torch.ops.decode_attention import (decode_attention,
@@ -73,7 +77,9 @@ def _counts():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,nh,nkv,hd,causal", [
-    (128, 32, 8, 128, True), (200, 4, 2, 64, True), (256, 8, 1, 128, False)])
+    (128, 32, 8, 128, True), (200, 4, 2, 64, True), (256, 8, 1, 128, False),
+    (130, 8, 2, 64, False), (200, 8, 2, 128, True), (1024, 8, 2, 128, True),
+    (2048, 8, 2, 64, True), (1024, 4, 4, 64, False)])
 def test_flash_kernel_matches_plain(cuda, dtype, s, nh, nkv, hd, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(2, s, nh, hd, generator=g, device=cuda).to(dtype)
@@ -164,7 +170,9 @@ def test_engine_kernel_path_matches_plain_path(cuda):
 
 BWD_SHAPES = [(2, 128, 32, 8, 64, True), (1, 200, 8, 2, 128, True),
               (2, 256, 4, 4, 64, False), (1, 130, 8, 1, 128, False),
-              (1, 1024, 32, 8, 128, True)]
+              (1, 1024, 32, 8, 128, True), (1, 130, 4, 2, 64, True),
+              (2, 200, 8, 1, 64, False), (2, 1024, 8, 4, 64, True),
+              (1, 2048, 8, 2, 128, True), (1, 2048, 4, 2, 64, False)]
 
 
 def _bwd_inputs(cuda, dtype, b, s, nh, nkv, hd, seed=0):
@@ -179,7 +187,6 @@ def _bwd_inputs(cuda, dtype, b, s, nh, nkv, hd, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,nh,nkv,hd,causal", BWD_SHAPES)
 def test_flash_lse_matches_plain(cuda, dtype, b, s, nh, nkv, hd, causal):
-    from kubetorch_tpu_torch.ops.attention import _launch
     q, k, v, _ = _bwd_inputs(cuda, dtype, b, s, nh, nkv, hd)
     out, lse = _launch(q, k, v, causal, hd ** -0.5, need_lse=True)
     want_out, want_lse = flash_attention_fwd_ref(q, k, v, causal=causal)
@@ -223,6 +230,106 @@ def test_bwd_kernels_read_strided_inputs(cuda):
     want = flash_attention_bwd_ref(q, k, v, out, lse, do)
     for got, w in zip((dq, dk, dv), want):
         assert grad_row_rel_err(got, w) <= ROW_RTOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("hd,s", [(64, 200), (128, 200), (128, 1024)])
+def test_tensor_core_kernels_read_strided_views(cuda, hd, s):
+    """A1 and A3 through TMA maps built from the views' strides: q/k/v
+    slices of one fused (B, S, N+2NKV, Hd) projection, dO a slice of a
+    wider tensor, and a head dim cut at a 16-byte offset from a wider row."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(2, s, 12, hd, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:12]
+    do = torch.randn(2, s, 16, hd, generator=g, device=cuda).bfloat16()[:, :, 4:12]
+    out, lse = _launch(q, k, v, True, hd ** -0.5, need_lse=True)
+    want_out, want_lse = flash_attention_fwd_ref(q, k, v)
+    assert row_rel_err(out, want_out) <= ROW_RTOL[torch.bfloat16]
+    assert float((lse - want_lse).abs().max()) <= LSE_ATOL
+    delta = attention_delta(want_out, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, want_lse, delta)
+    want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, want_lse, delta)
+    assert grad_row_rel_err(dk, want_dk) <= ROW_RTOL[torch.bfloat16]
+    assert grad_row_rel_err(dv, want_dv) <= ROW_RTOL[torch.bfloat16]
+    wide = torch.randn(1, s, 4, hd + 16, generator=g, device=cuda).bfloat16()
+    qw = wide[..., 8:8 + hd]                 # base 16 bytes in, rows 2*(hd+16)
+    got = flash_attention(qw, qw[:, :, :2], qw[:, :, 2:])
+    want = flash_attention_ref(qw, qw[:, :, :2], qw[:, :, 2:])
+    assert row_rel_err(got, want) <= ROW_RTOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tensor_core_kernels_capture_in_a_cuda_graph(cuda, hd):
+    """A1 (with and without LSE) and A3 record into a CUDA graph (the TMA
+    maps are kernel parameters encoded on the host); the replay equals the
+    eager call bit for bit."""
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 320, 8, 2, hd, seed=8)
+    out, lse = _launch(q, k, v, True, hd ** -0.5, need_lse=True)
+    delta = attention_delta(out, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    plain = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_lse = _launch(q, k, v, True, hd ** -0.5, need_lse=True)
+        g_plain = flash_attention(q, k, v)
+        g_dk, g_dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in ((g_out, out), (g_lse, lse), (g_plain, plain), (g_dk, dk),
+                      (g_dv, dv)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_dkv_kernel_is_deterministic(cuda, hd):
+    """A3 sums the GQA group and the q tiles in registers, no atomics: two
+    runs on the same inputs agree bit for bit."""
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 1024, 8, 2, hd, seed=9)
+    out, lse = flash_attention_fwd_ref(q, k, v)
+    delta = attention_delta(out, do)
+    first = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    second = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_wrappers_raise_on_misaligned_views(cuda):
+    """TMA takes 16-byte-aligned bases and strides only; the wrappers raise,
+    naming the tensor, and never take another body."""
+    base = torch.zeros(1, 128, 4, 72, device=cuda, dtype=torch.bfloat16)
+    good = torch.zeros(1, 128, 4, 64, device=cuda, dtype=torch.bfloat16)
+    shifted = base[..., 1:65]                # base 2 bytes off 16
+    narrowed = torch.zeros(1, 128, 4, 68, device=cuda,
+                           dtype=torch.bfloat16)[..., :64]   # rows of 136 bytes
+    before = (flash_attention.launches, flash_attention.bwd_dkv_launches)
+    with pytest.raises(ValueError, match="^q rows must be 16-byte aligned"):
+        flash_attention(shifted, good[:, :, :2], good[:, :, :2])
+    with pytest.raises(ValueError, match="^k rows must be 16-byte aligned"):
+        flash_attention(good, narrowed[:, :, :2], good[:, :, :2])
+    lse = torch.zeros(1, 4, 128, device=cuda)
+    with pytest.raises(ValueError, match="^dout rows must be 16-byte aligned"):
+        flash_attention_bwd_dkv(good, good[:, :, :2], good[:, :, :2], shifted,
+                                lse, lse)
+    assert (flash_attention.launches, flash_attention.bwd_dkv_launches) == before
+
+
+def test_fp32_and_small_head_dims_take_the_fma_body(cuda):
+    """The tensor-core bodies serve bf16 at head dim 64 and 128 only; fp32
+    (which wgmma cannot take) and bf16 at 16 and 32 keep the FMA bodies,
+    and the fp32 ones still meet fp32's tolerance."""
+    for kernel in ("fwd", "dkv"):
+        for hd in (16, 32, 64, 128):
+            assert tensor_core_body(kernel, torch.bfloat16, hd) == (hd >= 64)
+            assert not tensor_core_body(kernel, torch.float32, hd)
+    q, k, v, do = _bwd_inputs(cuda, torch.float32, 1, 200, 8, 2, 64, seed=10)
+    out, lse = _launch(q, k, v, True, 64 ** -0.5, need_lse=True)
+    want_out, want_lse = flash_attention_fwd_ref(q, k, v)
+    assert row_rel_err(out, want_out) <= ROW_RTOL[torch.float32]
+    delta = attention_delta(want_out, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, want_lse, delta)
+    want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, want_lse, delta)
+    assert grad_row_rel_err(dk, want_dk) <= ROW_RTOL[torch.float32]
+    assert grad_row_rel_err(dv, want_dv) <= ROW_RTOL[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
