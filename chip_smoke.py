@@ -6,9 +6,10 @@
 1. Prints the card's name and power limit; fails without CUDA.
 2. Builds the CUDA kernels from csrc/ through ``_build.load`` (one nvcc per
    source, all started together) and prints the total build time. Fails
-   unless the SASS of the flash_fwd and flash_bwd libraries holds wgmma
-   (HGMMA) and TMA loads (UTMALDG), and prints the tensor-core kernels'
-   registers and local memory (spills).
+   unless the SASS of each tensor-core kernel function (A1, A2 and A3's
+   bf16 bodies, B3's prefill body) holds wgmma (HGMMA) and TMA loads
+   (UTMALDG), counted per function, and prints the kernels' registers and
+   local memory (spills), failing on a spill.
 3. Holds each kernel against its plain PyTorch version, row by row
    (kubetorch_tpu_torch/ops/tolerance.py), in bf16 and fp32, and times
    kernel, plain version and the nearest PyTorch call (SDPA or a cuBLAS
@@ -16,13 +17,14 @@
    card's least time for the same work: the flash forward (A1, bf16 at
    every prefill bucket of the engine and a ragged T) and flash-decode
    (B1) at the engine's shapes; the int8 flash-decode (B2) at the same
-   grid; the int4 matmul (B3) at Llama-3-8B's projections, 8 decode rows,
-   a ragged 300 and a 2048-row prefill; A1 with its LSE, dQ (A2) and dK/dV
-   (A3) at the training shape and at head dim 128. For the tensor-core A1
-   and A3 also TFLOP/s of the counted work, the share of the bound, the
-   fp32-FMA body's time on fp32 inputs of the same shape (measured), and,
-   on the printed line only, the previous design's bf16 time (quoted from
-   PERF.md, not measured here).
+   grid; the int4 matmul (B3) at Llama-3-8B's projections, 1, 8 and 17
+   rows (both bodies' edges), a ragged 300 and 2048-row prefills, each
+   through the body kt_q4_matmul_body reports; A1 with its LSE, dQ (A2)
+   and dK/dV (A3) at the training shape and at head dim 128. For the
+   tensor-core A1, A2 and A3 and for B3 also TFLOP/s of the counted work,
+   the share of the bound and, on the printed line only, the previous
+   design's bf16 time (quoted from PERF.md, not measured here); for A1-A3
+   the fp32-FMA body's time on fp32 inputs of the same shape (measured).
 4. Serves Llama-3-8B at full width (random weights from a seed) through
    GenerationEngine: 8 slots, max_len 2048, greedy, 12 requests with
    prompts over every prefill bucket, admitted while others decode. Checks
@@ -74,13 +76,23 @@ MAX_NEW = 32
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "quant_matmul")
 # the engine's prefill buckets (the last is max_len) and a ragged length
 A1_BUCKETS, A1_RAGGED = (128, 256, 512, 1024, 2048), 1000
-# the bf16 times of A1 and A3 before the tensor-core redesign, when they
-# ran the fp32-FMA bodies: PERF.md section 6 (H100 80GB HBM3, 700 W,
-# chip_smoke.py of PR 2, within 3% in PR 3's runs); A1 at Hd 128 is the
-# serving T=1024 time, the same shape without the LSE
+# the bf16 times of A1, A2 and A3 before the tensor-core redesign, when
+# they ran the fp32-FMA bodies: PERF.md section 6, the earlier design's
+# times in the kernel table (H100 80GB HBM3, 700 W, this script); A1 at
+# Hd 128 is the serving T=1024 time, the same shape without the LSE
 PREV_DESIGN_MS = {"fwd Hd=64": 3.395, "fwd Hd=128": 0.627, "dkv Hd=64": 6.52,
-                  "dkv Hd=128": 1.372}
-PREV_TRAIN_TOKENS_PER_S = 14127   # the same source, PR 2's training phase
+                  "dkv Hd=128": 1.372, "dq Hd=64": 4.54, "dq Hd=128": 0.842}
+# B3's warm times per (M, K, N) before the split-K / wgmma redesign, with
+# one mma.sync body for every M: PERF.md section 6, the earlier design's
+# times in the kernel table (H100 80GB HBM3, 700 W, this script); shapes
+# it did not time: None
+PREV_Q4_MS = {(8, 4096, 4096): 0.0368, (8, 4096, 1024): 0.0370,
+              (8, 4096, 14336): 0.0491, (8, 14336, 4096): 0.1189,
+              (300, 4096, 4096): 0.122, (2048, 4096, 1024): 0.136,
+              (2048, 4096, 14336): 1.921, (2048, 14336, 4096): 1.887}
+# the same source, the training phase with A1 and A3 on the tensor cores
+# and A2 still the fp32-FMA body
+PREV_TRAIN_TOKENS_PER_S = 20582
 # training: batch x sequence, warm-up and timed steps, the CE chunk
 TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, TRAIN_CHUNK = 4, 2048, 2, 5, 256
 # kernel-path vs plain-path checks of the training phase:
@@ -116,11 +128,12 @@ LOGITS_REL_L2 = 5e-2
 # at ops/tolerance.py's ROW_RTOL, with q in bf16 as served and in fp32
 DECODE_STEP_REL_L2 = 2e-2
 # B3 at Llama-3-8B's shapes: (M, K, N), the four projection shapes at 8
-# decode rows (the 16-row tile), a ragged 300 and each at a 2048-row
-# prefill bucket but (4096, 4096), which the 300 rows cover (the 64-row
-# tile)
+# decode rows and at a 2048-row prefill bucket, a ragged 300, and 1 and 17
+# rows of (4096, 4096): the split-K body's single-tile case and the first
+# M the wgmma body takes
 Q4_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
-             (8, 14336, 4096), (300, 4096, 4096), (2048, 4096, 1024),
+             (8, 14336, 4096), (1, 4096, 4096), (17, 4096, 4096),
+             (300, 4096, 4096), (2048, 4096, 4096), (2048, 4096, 1024),
              (2048, 4096, 14336), (2048, 14336, 4096))
 Q4_GROUP = 128
 
@@ -196,26 +209,48 @@ def rate_line(flops: float, ms: float, bound_ms: float) -> dict:
     return dict(tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
 
 
+# the tensor-core kernel functions, by library: each must hold wgmma and
+# TMA loads in its own SASS (a count over a library would let one kernel's
+# wgmma stand for another that still runs FMAs)
+TENSOR_CORE_KERNELS = {"flash_fwd": ("flash_fwd_sm90",),
+                       "flash_bwd": ("bwd_dq_sm90", "bwd_dkv_sm90"),
+                       "quant_matmul": ("q4_wgmma",)}
+
+
 def check_tensor_core_sass(_build) -> None:
-    """The flash libraries must hold wgmma (HGMMA) and TMA loads (UTMALDG):
-    a bf16 dispatch that reached the FMA body would leave neither. Prints
-    each tensor-core kernel's registers and local memory (spills)."""
+    """Per kernel function: the bf16 bodies of A1, A2 and A3 and B3's
+    prefill body must each hold wgmma (HGMMA) and TMA loads (UTMALDG), in
+    every instantiation. Prints every kernel's registers and local memory
+    and fails on a spill (local memory) in a tensor-core kernel."""
+    import re
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    for name in ("flash_fwd", "flash_bwd"):
+    for name, kernels in TENSOR_CORE_KERNELS.items():
         lib = str(_build.library_path(name))
         sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
                               text=True, check=True).stdout
-        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-        print(f"sass {name}: {counts}", flush=True)
-        if not all(counts.values()):
-            fail(f"{name}: SASS lacks wgmma or TMA instructions {counts}")
+        parts = re.split(r"^\s*Function : (\S+)\s*$", sass, flags=re.M)
+        funcs = dict(zip(parts[1::2], parts[2::2]))
+        for kernel in kernels:
+            found = {f: b for f, b in funcs.items() if kernel in f}
+            if not found:
+                fail(f"{name}: no kernel function named {kernel} in the SASS")
+            for func, body in found.items():
+                counts = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
+                print(f"sass {name} {kernel} ({func}): {counts}", flush=True)
+                if not all(counts.values()):
+                    fail(f"{name} {func}: SASS lacks wgmma or TMA {counts}")
         usage = subprocess.run([tool, "--dump-resource-usage", lib],
                                capture_output=True, text=True, check=True).stdout
         lines = usage.splitlines()
         for i, line in enumerate(lines):     # "Function <name>:" then usage
-            if line.strip().startswith("Function") and "sm90" in line:
-                res = lines[i + 1].strip() if i + 1 < len(lines) else ""
-                print(f"resources {name}: {line.strip()} {res}", flush=True)
+            if not line.strip().startswith("Function"):
+                continue
+            res = lines[i + 1].strip() if i + 1 < len(lines) else ""
+            print(f"resources {name}: {line.strip()} {res}", flush=True)
+            local = re.search(r"LOCAL:(\d+)", res)
+            if (any(k in line for k in kernels) and local
+                    and int(local.group(1)) > 0):
+                fail(f"{name}: {line.strip()} uses local memory (spills): {res}")
 
 
 def compare(name, got, want) -> tuple:
@@ -380,12 +415,14 @@ def check_decode_quant(torch, F, ops_dec):
 
 
 def check_q4(torch, ops_q4):
-    """B3 at Q4_SHAPES: fp32 output against the plain version per row (x in
-    fp32 and in bf16: the kernel rounds it to bf16 either way), then times
-    with bf16 x. Library: cuBLAS x_bf16 @ W_bf16 over the weight
-    dequantized once, outside the timing. Returns the record of the widest
-    decode shape (8 x 4096 x 14336, w_gate and w_up) with every shape's
-    numbers beside it."""
+    """B3 at Q4_SHAPES, each through the body kt_q4_matmul_body reports
+    (split-K at M <= 16, wgmma above): fp32 output against the plain
+    version per row (x in fp32 and in bf16: the kernel rounds it to bf16
+    either way) and bitwise equal over two calls, then times with bf16 x.
+    Library: cuBLAS x_bf16 @ W_bf16 over the weight dequantized once,
+    outside the timing. Returns the record of the widest decode shape
+    (8 x 4096 x 14336, w_gate and w_up) with every shape's numbers beside
+    it."""
     from kubetorch_tpu_torch.models.quant import (_dequant_int4,
                                                   _quantize_leaf_int4)
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -396,11 +433,18 @@ def check_q4(torch, ops_q4):
         del w
         packed, scale = leaf["__kt_q4__"], leaf["scale"]
         x = torch.randn(m, k, generator=gen, device="cuda")
+        groups = scale.shape[0]
+        route = ops_q4.q4_matmul_body(m, k, n, groups)
+        if route != ("splitk" if m <= ops_q4.SPLITK_MAX_M else "wgmma"):
+            fail(f"q4_matmul M={m} K={k} N={n}: route {route}")
+        splits = ops_q4.q4_split_plan(m, k, n, groups)
         for xin in (x, x.bfloat16()):
             got = ops_q4.q4_matmul(xin, packed, scale)
             want = ops_q4.q4_matmul_ref(xin, packed, scale)
-            err, rel = compare(f"q4_matmul M={m} K={k} N={n} x {xin.dtype}",
-                               got, want)
+            err, rel = compare(f"q4_matmul M={m} K={k} N={n} x {xin.dtype} "
+                               f"({route}, {splits} splits)", got, want)
+        if not torch.equal(got, ops_q4.q4_matmul(xin, packed, scale)):
+            fail(f"q4_matmul M={m} K={k} N={n} ({route}): two calls differ")
         del got, want
         xb = x.bfloat16()
         ms = time_ms(torch, lambda: ops_q4.q4_matmul(xb, packed, scale))
@@ -414,19 +458,29 @@ def check_q4(torch, ops_q4):
         nbytes = k // 2 * n + 4 * (k // Q4_GROUP) * n + 2 * m * k + 4 * m * n
         flops = 2 * m * k * n
         b_ms, b_by = bound(nbytes, flops)
-        print(f"kernel q4_matmul M={m} K={k} N={n} g={Q4_GROUP}: ms={ms} "
+        rate = rate_line(flops, ms, b_ms)
+        prev = PREV_Q4_MS.get((m, k, n))
+        print(f"kernel q4_matmul M={m} K={k} N={n} g={Q4_GROUP} route={route} "
+              f"splits={splits}: ms={ms} "
               f"ms_cold_l2={ms_cold} plain_ms={plain} library_ms={lib} "
               f"library_ms_cold_l2={lib_cold} (cuBLAS bf16 over W "
               f"dequantized) bound_ms={b_ms} ({b_by}; {nbytes} bytes, "
-              f"{flops} flops)", flush=True)
+              f"{flops} flops) tflops={rate['tflops']} "
+              f"bound_share={rate['bound_share']} prev_design_bf16_ms={prev} "
+              f"(one mma.sync body, PERF.md, not this run)", flush=True)
         per_shape.append(dict(shape=f"M={m} K={k} N={n} g={Q4_GROUP}",
+                              route=route, splits=splits,
                               max_abs_err=err, max_row_rel_err=rel, ms=ms,
                               plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                               library_ms=lib, ms_cold_l2=ms_cold,
-                              library_ms_cold_l2=lib_cold))
+                              library_ms_cold_l2=lib_cold, **rate))
         torch.cuda.empty_cache()
-    rec = dict(next(r for r in per_shape
-                    if r["shape"].startswith("M=8 K=4096 N=14336")))
+    widest = next(r for r in per_shape
+                  if r["shape"].startswith("M=8 K=4096 N=14336"))
+    # the kernels line's "route" is the language; B3's body is "body" here
+    # and "route" in each per_shape entry
+    rec = {k: v for k, v in widest.items() if k != "route"}
+    rec["body"] = widest["route"]
     rec["per_shape"] = per_shape
     return rec
 
@@ -501,7 +555,7 @@ def check_train_kernels(torch, F, ops_attn):
             ms, plain, lib = times[name]
             rate = rate_line(flops, ms, b_ms)
             redesign = {}
-            if name in fma:      # A1 and A3: the tensor-core bodies
+            if name in fma:      # A1, A2 and A3: the tensor-core bodies
                 redesign = dict(fp32_fma_body_ms=fma[name])
             print(f"kernel flash_{name} {shape} bf16 causal: ms={ms} "
                   f"plain_ms={plain} library_ms={lib} ({lib_name[name]}) "
@@ -530,7 +584,7 @@ def check_train_kernels(torch, F, ops_attn):
 
 
 def fma_body_times(torch, ops_attn, base, scale) -> dict:
-    """A1 with its LSE and A3 on fp32 inputs of the same shape: their
+    """A1 with its LSE, A2 and A3 on fp32 inputs of the same shape: their
     fp32-FMA bodies, the design the bf16 kernels had before the tensor-core
     redesign (fp32 loads, so not that design's bf16 time)."""
     q, k, v, do = base
@@ -538,6 +592,8 @@ def fma_body_times(torch, ops_attn, base, scale) -> dict:
     delta = ops_attn.attention_delta(out, do)
     times = {"fwd": time_ms(torch, lambda: ops_attn._launch(
                  q, k, v, True, scale, need_lse=True), iters=5),
+             "dq": time_ms(torch, lambda: ops_attn.flash_attention_bwd_dq(
+                 q, k, v, do, lse, delta), iters=5),
              "dkv": time_ms(torch, lambda: ops_attn.flash_attention_bwd_dkv(
                  q, k, v, do, lse, delta), iters=5)}
     del out, lse, delta
@@ -949,7 +1005,7 @@ def drive_training(torch, ops_attn, card):
     print(f"train: tokens_per_s={tps} ms_per_step={dt / TRAIN_STEPS * 1e3} "
           f"mfu={mfu} (6P + 12*L*D*S flops per token over 989 TFLOP/s) "
           f"peak_memory_gb={peak_gb} batch={TRAIN_B}x{TRAIN_S} card={card} "
-          f"(before the tensor-core A1/A3, PERF.md: {PREV_TRAIN_TOKENS_PER_S} "
+          f"(before the tensor-core A2, PERF.md: {PREV_TRAIN_TOKENS_PER_S} "
           f"tokens/s; no claim)", flush=True)
 
     def one_step():

@@ -44,8 +44,22 @@
 // 12.9, sm_90a, -Xptxas -v) gives 173 registers a thread at Hd 64 and 200
 // at Hd 128, no spill stores or loads.
 //
-// dQ (every type and head dim), and dK/dV in fp32 or at bf16 head dim 16 or
-// 32: the first port's bodies, plain fp32 FMAs on CUDA cores (67 TFLOP/s
+// dQ in bf16 at head dim 64 and 128: bwd_dq_sm90, the same design turned
+// around. One block per (64-row q tile, head, batch), heaviest causal tiles
+// first; one consumer warpgroup owns the 64 query rows and keeps the dQ
+// accumulator (64 x Hd fp32) in registers; one producer warp TMA-loads Q
+// and dO once, stores the tile's LSE and delta rows, then streams the K and
+// V tiles of the head's kv-head (h * NKV / N) up to the diagonal through a
+// ring of 3 stages at Hd 64, 2 at Hd 128. Per k tile: S = Q.K^T and
+// dP = dO.V^T as SS wgmma (exact bf16 products, fp32 sums); P and dS in the
+// accumulator registers with LSE and delta indexed by row, masked before
+// the exp (columns past S arrive as zeros from TMA, but delta is not zero
+// there); dQ += dS.K as register-A wgmma over the hi and lo halves of dS,
+// K read MN-major from the same ring tile (8*Hd flops per pair instead of
+// 6).
+//
+// dQ and dK/dV in fp32 or at bf16 head dim 16 or 32: the first port's
+// bodies, plain fp32 FMAs on CUDA cores (67 TFLOP/s
 // peak), 64x64 tiles, each thread a 4x4 block of logits and dP and a
 // 4 x (Hd/16) block of each accumulator in registers; all tile rows padded
 // by one 32-bit word in shared memory so the column-strided reads of the
@@ -648,14 +662,228 @@ cudaError_t launch_dkv_sm90(const BwdParams& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Which body serves dK/dV at (dtype, head dim): the dispatch and the query
-// kt_flash_bwd_dkv_body read this one predicate.
-bool dkv_takes_sm90(int dtype, int HD) { return dtype == 1 && (HD == 64 || HD == 128); }
+// ---------------------------------------------------------------------------
+// dQ in bf16 at head dim 64 / 128: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct DqSmem {  // byte offsets from a 1024-byte-aligned base
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static constexpr int Q_BYTES = BQ * HD * 2;   // HD/64 chunks of BQ x 128 B
+  static constexpr int KV_BYTES = BK * HD * 2;  // one K or V tile
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + Q_BYTES;
+  static constexpr int STATS = DO + Q_BYTES;            // [lse, delta][BQ] fp32
+  static constexpr int K = STATS + 1024;                // + stage * KV_BYTES
+  static constexpr int V = K + STAGES * KV_BYTES;       // + stage * KV_BYTES
+  static constexpr int BAR = V + STAGES * KV_BYTES;     // q_full, full[], empty[]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES);
+  static_assert(2 * BQ * 4 <= 1024, "stats fit their slot");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(SM90_THREADS)
+    bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                BwdParams p) {
+  using L = DqSmem<HD>;
+  using namespace sm90;
+  constexpr int CHUNKS = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + L::STATS);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + L::STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h * p.NKV / p.N;
+  const int q0 = qt * BQ;
+  const int S = p.S;
+  int n_kt = (S + BK - 1) / BK;
+  if (p.causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 32);  // every producer lane: its LSE/delta stores
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // producer warp
+    const int lane = threadIdx.x - CONSUMERS;
+    // the tile's LSE and delta, by row; rows past S read 0 (their q and dO
+    // rows are zeros and they are never written)
+    const long long stat0 = ((long long)b * p.N + h) * S;
+    for (int r = lane; r < BQ; r += 32) {
+      const bool live = q0 + r < S;
+      stats[r] = live ? p.lse[stat0 + q0 + r] : 0.f;
+      stats[BQ + r] = live ? p.delta[stat0 + q0 + r] : 0.f;
+    }
+    if (lane != 0) {
+      mbar_arrive(q_full);
+      return;
+    }
+    mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+    for (int c = 0; c < CHUNKS; ++c) {
+      tma_load_4d(smem + L::Q + c * BQ * 128, &tq, q_full, c * 64, h, q0, b);
+      tma_load_4d(smem + L::DO + c * BQ * 128, &tdo, q_full, c * 64, h, q0, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_arrive_expect_tx(&full[stage], 2 * L::KV_BYTES);
+      for (int c = 0; c < CHUNKS; ++c) {
+        tma_load_4d(smem + L::K + stage * L::KV_BYTES + c * BK * 128, &tk, &full[stage],
+                    c * 64, kvh, kt * BK, b);
+        tma_load_4d(smem + L::V + stage * L::KV_BYTES + c * BK * 128, &tv, &full[stage],
+                    c * 64, kvh, kt * BK, b);
+      }
+      if (++stage == L::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows r0 and r0 + 8 of the q tile, key columns
+  // 8j + 2c of each k tile
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int c2 = 2 * (lane % 4);
+  const int r0 = q0 + 16 * warp + lane / 4;
+  const int r1 = r0 + 8;
+  const uint32_t q_addr = smem_addr(smem + L::Q);
+  const uint32_t do_addr = smem_addr(smem + L::DO);
+
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  // LSE and delta are per query row (A3 reads them per column)
+  const float lse0 = stats[r0 - q0], lse1 = stats[r1 - q0];
+  const float delta0 = stats[BQ + r0 - q0], delta1 = stats[BQ + r1 - q0];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    mbar_wait(&full[stage], phase);
+    const uint32_t k_addr = smem_addr(smem + L::K + stage * L::KV_BYTES);
+    const uint32_t v_addr = smem_addr(smem + L::V + stage * L::KV_BYTES);
+
+    // S = Q.K^T and dP = dO.V^T: k steps of 16 along the head dim
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      const uint32_t off = (ks % 4) * 32;  // within a 128-byte swizzled row
+      wgmma_ss(s, desc_sw128(q_addr + (ks / 4) * BQ * 128 + off, 16),
+               desc_sw128(k_addr + (ks / 4) * BK * 128 + off, 16), ks > 0);
+    }
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      const uint32_t off = (ks % 4) * 32;
+      wgmma_ss(dp, desc_sw128(do_addr + (ks / 4) * BQ * 128 + off, 16),
+               desc_sw128(v_addr + (ks / 4) * BK * 128 + off, 16), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P and dS in place of dP, masked where key > query or key >= S (the
+    // columns past S come in as zeros, but delta is not zero there)
+    const bool edge = k0 + BK > S || (p.causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + c2 + e;
+        float x0 = s[4 * j + e] * p.scale;
+        float x1 = s[4 * j + 2 + e] * p.scale;
+        if (edge) {
+          if (col >= S || (p.causal && col > r0)) x0 = NEG_INF;
+          if (col >= S || (p.causal && col > r1)) x1 = NEG_INF;
+        }
+        const float p0 = expf(x0 - lse0);
+        const float p1 = expf(x1 - lse1);
+        dp[4 * j + e] = p0 * (dp[4 * j + e] - delta0) * p.scale;
+        dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - delta1) * p.scale;
+      }
+    }
+
+    // dQ += dS.K as hi + lo; K is MN-major (head dim contiguous), a k16
+    // step is 16 key rows
+    uint32_t sh[BK / 4], sl[BK / 4];
+    split_acc(dp, sh, sl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dk = desc_sw128(k_addr + kk * 16 * 128, BK * 128);
+      wgmma_rs(dq, sh[4 * kk], sh[4 * kk + 1], sh[4 * kk + 2], sh[4 * kk + 3], dk);
+      wgmma_rs(dq, sl[4 * kk], sl[4 * kk + 1], sl[4 * kk + 2], sl[4 * kk + 3], dk);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    fence_regs(sh);
+    fence_regs(sl);
+    mbar_arrive(&empty[stage]);
+    if (++stage == L::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(p.dq) + b * p.dqs[0] + h * p.dqs[2];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = 8 * j + c2;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + (long long)r0 * p.dqs[1] + col) =
+          __floats2bfloat162_rn(dq[4 * j], dq[4 * j + 1]);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + (long long)r1 * p.dqs[1] + col) =
+          __floats2bfloat162_rn(dq[4 * j + 2], dq[4 * j + 3]);
+  }
+}
+
+template <int HD>
+cudaError_t launch_dq_sm90(const BwdParams& p, int B, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::encode_bshd(&tq, p.q, B, p.S, p.N, HD, p.qs, BQ);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tdo, p.dout, B, p.S, p.N, HD, p.dos, BQ);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tk, p.k, B, p.S, p.NKV, HD, p.ks, BK);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tv, p.v, B, p.S, p.NKV, HD, p.vs, BK);
+  if (err != cudaSuccess) return err;
+  const int smem = DqSmem<HD>::BYTES + 1024;  // + alignment slack
+  err = cudaFuncSetAttribute(bwd_dq_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.S + BQ - 1) / BQ, p.N, B);
+  bwd_dq_sm90<HD><<<grid, SM90_THREADS, smem, stream>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
+// Which body serves dQ and dK/dV at (dtype, head dim): the dispatch and the
+// queries kt_flash_bwd_dq_body / kt_flash_bwd_dkv_body read this one
+// predicate.
+bool takes_sm90(int dtype, int HD) { return dtype == 1 && (HD == 64 || HD == 128); }
 
 cudaError_t dispatch_dq(const BwdParams& p, int dtype, int B, int HD, cudaStream_t st) {
+  if (takes_sm90(dtype, HD))
+    return HD == 64 ? launch_dq_sm90<64>(p, B, st) : launch_dq_sm90<128>(p, B, st);
   switch (dtype * 1000 + HD) {
-    case 1128: return launch_dq<__nv_bfloat16, 128>(p, B, st);
-    case 1064: return launch_dq<__nv_bfloat16, 64>(p, B, st);
     case 1032: return launch_dq<__nv_bfloat16, 32>(p, B, st);
     case 1016: return launch_dq<__nv_bfloat16, 16>(p, B, st);
     case 128: return launch_dq<float, 128>(p, B, st);
@@ -667,7 +895,7 @@ cudaError_t dispatch_dq(const BwdParams& p, int dtype, int B, int HD, cudaStream
 }
 
 cudaError_t dispatch_dkv(const BwdParams& p, int dtype, int B, int HD, cudaStream_t st) {
-  if (dkv_takes_sm90(dtype, HD))
+  if (takes_sm90(dtype, HD))
     return HD == 64 ? launch_dkv_sm90<64>(p, B, st) : launch_dkv_sm90<128>(p, B, st);
   switch (dtype * 1000 + HD) {
     case 1032: return launch_dkv<__nv_bfloat16, 32>(p, B, st);
@@ -738,8 +966,10 @@ extern "C" int kt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch_dkv(p, dtype, B, HD, static_cast<cudaStream_t>(stream));
 }
 
+// 1 if dQ at (dtype, head dim) runs on the tensor-core body, 0 if on the
+// fp32-FMA body.
+extern "C" int kt_flash_bwd_dq_body(int dtype, int HD) { return takes_sm90(dtype, HD) ? 1 : 0; }
+
 // 1 if dK/dV at (dtype, head dim) runs on the tensor-core body, 0 if on the
 // fp32-FMA body.
-extern "C" int kt_flash_bwd_dkv_body(int dtype, int HD) {
-  return dkv_takes_sm90(dtype, HD) ? 1 : 0;
-}
+extern "C" int kt_flash_bwd_dkv_body(int dtype, int HD) { return takes_sm90(dtype, HD) ? 1 : 0; }

@@ -3,15 +3,16 @@
 // Each helper wraps one PTX instruction family:
 //   mbar_*            mbarrier.init / arrive / arrive.expect_tx /
 //                     try_wait.parity (shared::cta), fence.mbarrier_init
-//   tma_load_4d       cp.async.bulk.tensor.4d ... mbarrier::complete_tx::bytes
+//   tma_load_4d/_2d   cp.async.bulk.tensor.{4d,2d} ... mbarrier::complete_tx::bytes
 //                     (a TMA copy of one box into shared memory)
-//   encode_bshd       cuTensorMapEncodeTiled on the host, fetched through
+//   encode_bshd/_2d   cuTensorMapEncodeTiled on the host, fetched through
 //                     cudaGetDriverEntryPoint, so no -lcuda is needed
 //   desc_sw128        the 64-bit wgmma shared-memory matrix descriptor of a
 //                     tile that TMA wrote with 128-byte swizzle
 //   wgmma_ss/_rs      wgmma.mma_async m64nNk16 f32 += bf16 x bf16, A from
-//                     shared memory (SS) or from registers (RS)
-//   wgmma_fence/commit/wait
+//                     shared memory (SS) or from registers (RS); wgmma_rs_kb
+//                     reads B K-major and takes an accumulate flag
+//   wgmma_fence/commit/wait_all
 //                     wgmma.fence, wgmma.commit_group, wgmma.wait_group
 //   split_bf16x2      an fp32 pair as hi = bf16(x) and lo = bf16(x - hi),
 //                     each packed as bf16x2: the A fragment of a product
@@ -110,6 +111,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one box of a 2-D `map` at coordinates (c0, c1), innermost first
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -160,6 +171,27 @@ inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B, int S,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A row-major (rows, cols) matrix of `type` with rows `row_bytes` apart,
+// read in boxes of box_cols x box_rows; coordinates past either edge read
+// as zeros. `swizzle` is CU_TENSOR_MAP_SWIZZLE_128B for a tile of 128-byte
+// box rows (wgmma reads it as it lands; threads undo the XOR of the
+// 16-byte chunk with row % 8) or _NONE. Base and row_bytes must be
+// 16-byte multiples.
+inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             long long rows, long long cols, long long row_bytes, int box_cols,
+                             int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t bytes[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, bytes, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -185,6 +217,7 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+
 
 // Keep the compiler from moving reads of registers that an asynchronous
 // wgmma writes (its accumulator) or reads (its A fragment) across the wait.
@@ -301,6 +334,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D(64 x 128) (+)= A.B, A a k16 fragment in registers, B K-major bf16 in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs_kb(float (&d)[64], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 // (x, y) as hi = bf16(x, y) and lo = bf16(x - hi, y - hi), each packed as

@@ -9,9 +9,9 @@ plain versions.
 - A3, ``csrc/flash_bwd.cu:kt_flash_bwd_dkv``: dK and dV, replacing
   ``_bwd_dkv_kernel``.
 
-A1 and A3 in bf16 at head dim 64 and 128 run on Hopper's tensor cores
-(wgmma fed by TMA, ``csrc/sm90.cuh``), with the fp32 P and dS of the
-Pallas bodies split into two bf16 halves; every other (dtype, head dim)
+A1, A2 and A3 in bf16 at head dim 64 and 128 run on Hopper's tensor
+cores (wgmma fed by TMA, ``csrc/sm90.cuh``), with the fp32 P and dS of
+the Pallas bodies split into two bf16 halves; every other (dtype, head dim)
 runs the fp32-FMA bodies. :func:`tensor_core_body` says which, from the
 same predicate the C dispatch reads. TMA needs each operand's base address
 and leading strides in multiples of 16 bytes; the wrappers raise, naming
@@ -165,10 +165,11 @@ def _fn(lib_name: str, sym: str, n_ptrs: int):
 
 
 def tensor_core_body(kernel: str, dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether A1 (``kernel="fwd"``) or A3 (``"dkv"``) runs its tensor-core
-    body at this dtype and head dim (else its fp32-FMA body). Loads the
-    library."""
+    """Whether A1 (``kernel="fwd"``), A2 (``"dq"``) or A3 (``"dkv"``) runs
+    its tensor-core body at this dtype and head dim (else its fp32-FMA
+    body). Loads the library."""
     lib_name, sym = {"fwd": ("flash_fwd", "kt_flash_fwd_body"),
+                     "dq": ("flash_bwd", "kt_flash_bwd_dq_body"),
                      "dkv": ("flash_bwd", "kt_flash_bwd_dkv_body")}[kernel]
     fn = getattr(_build.load(lib_name), sym)
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int

@@ -14,8 +14,11 @@ multiplied by its scale row, and the groups are summed in order. The
 output is fp32; callers cast.
 
 ``q4_matmul`` launches the kernel for CUDA tensors and uses the plain
-version only for CPU tensors. ``q4_matmul.launches`` counts kernel
-launches. ``q4_supported`` is the JAX package's tiling predicate
+version only for CPU tensors. ``q4_matmul.launches`` counts wrapper calls
+that launched the kernel: one per call, also where split-K adds a second
+pass that sums the splits. ``q4_matmul_body`` says which of the kernel's
+two bodies a shape takes ("splitk" at M <= 16, "wgmma" above), and
+``q4_split_plan`` how many runs of whole groups split K at decode. ``q4_supported`` is the JAX package's tiling predicate
 verbatim, so the same shapes take the kernel here as there; the rest go
 to the dequantize-then-matmul fallback in ``models.quant.wdot``.
 """
@@ -36,6 +39,11 @@ KERNEL_N_MULTIPLE = 16
 # the Pallas kernel's output tile width; routes the same shapes as
 # kubetorch_tpu/ops/quant_matmul.py:96 (this kernel's own tiles are narrower)
 _JAX_BLOCK_J = 512
+# the split-K body (M <= 16): output columns per block, and the blocks the
+# split plan aims at, about three per SM of an H100 (132 SMs)
+SPLITK_MAX_M = 16
+SPLITK_BLOCK_N = 128
+SPLITK_TARGET_BLOCKS = 3 * 132
 
 
 def q4_supported(x_shape, packed_shape, scale_shape) -> bool:
@@ -52,6 +60,29 @@ def q4_supported(x_shape, packed_shape, scale_shape) -> bool:
     if block_k % 128 or dout % min(_JAX_BLOCK_J, dout):
         return False
     return True
+
+
+def q4_split_plan(m: int, k: int, n: int, groups: int) -> int:
+    """How many runs of whole groups split K at (M, K, N, G): 1 above
+    ``SPLITK_MAX_M`` rows (the wgmma body does not split), else enough for
+    about ``SPLITK_TARGET_BLOCKS`` blocks of ``SPLITK_BLOCK_N`` columns,
+    never more than the G/2 groups of a plane. Pure host arithmetic."""
+    if m > SPLITK_MAX_M:
+        return 1
+    per_plane = groups // 2
+    n_tiles = -(-n // SPLITK_BLOCK_N)
+    want = -(-SPLITK_TARGET_BLOCKS // n_tiles)
+    return max(1, min(per_plane, want))
+
+
+def q4_split_ranges(per_plane: int, splits: int):
+    """The groups [t0, t1) of each split, as ``csrc/quant_matmul.cu``
+    computes them: split s covers ``s * G2 // splits`` to
+    ``(s + 1) * G2 // splits`` of the G2 = G/2 groups of a plane."""
+    if not 1 <= splits <= per_plane:
+        raise ValueError(f"{splits} splits of {per_plane} groups")
+    return [(s * per_plane // splits, (s + 1) * per_plane // splits)
+            for s in range(splits)]
 
 
 def unpack_int4(packed: torch.Tensor):
@@ -88,9 +119,18 @@ def _lib():
     lib = _build.load("quant_matmul")
     fn = lib.kt_q4_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def q4_matmul_body(m: int, k: int, n: int, groups: int) -> str:
+    """Which body of the kernel (M, K, N, G) takes: "splitk" (mma.sync,
+    K split across blocks) or "wgmma" (wgmma + TMA). Loads the library
+    and asks it, so the answer is the dispatch's own."""
+    fn = _build.load("quant_matmul").kt_q4_matmul_body
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    return ("splitk", "wgmma")[fn(m, k, n, groups)]
 
 
 def _launch(x: torch.Tensor, packed: torch.Tensor,
@@ -114,11 +154,15 @@ def _launch(x: torch.Tensor, packed: torch.Tensor,
                              f"{t.stride()}")
         check_cuda_operand(name, t, dtype, x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    splits = q4_split_plan(m, k, n, groups)
+    work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(xb.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), m, n, k, groups, stream)
+                 out.data_ptr(), None if work is None else work.data_ptr(),
+                 m, n, k, groups, splits, stream)
     raise_on_error("q4_matmul", err)
     q4_matmul.launches += 1
     return out

@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""What splitting P and dS into two bf16 halves costs the tensor-core A1
-and A3, on one card.
+"""What splitting P and dS into two bf16 halves costs the tensor-core A1,
+A2 and A3, on one card.
 
     python3 kubetorch_tpu_torch/tools/split_cost.py [--pairs N]
 
 Builds ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` twice: as the
 checkout has them, and from a copy of ``csrc/`` in a temporary directory
-in which the register-A wgmma of P.V (A1) and of P^T.dO and dS^T.Q (A3)
-takes the hi half only, so that P and dS are rounded to bf16 as SDPA and
-FlashAttention round them. The rounded build is a measurement and nothing
-else: the port never loads it. Times A1 with its LSE and A3 at the
-training shape (B=4, S=2048, N=32, NKV=8, Hd=64, bf16, causal) on each
+in which the register-A wgmma of P.V (A1), of dS.K (A2) and of P^T.dO
+and dS^T.Q (A3) takes the hi half only, so that P and dS are rounded to
+bf16 as SDPA and FlashAttention round them. The rounded build is a
+measurement and nothing else: the port never loads it. Times A1 with its
+LSE, A2 and A3 at the training shape (B=4, S=2048, N=32, NKV=8, Hd=64, bf16, causal) on each
 build, in the order split, rounded, rounded, split (``--pairs`` times),
 each time as 20 calls captured in a CUDA graph and replayed 5 times
 between CUDA events, and holds each build's outputs to the plain versions
@@ -31,8 +31,9 @@ import sys
 import tempfile
 
 B, S, NH, NKV, HD = 4, 2048, 32, 8, 64
-# the lo-half issues of the register-A products: wgmma_rs(o | dv | dk, pl | sl ...)
-LO_ISSUE = re.compile(r"\n\s*wgmma_rs\((o|dv|dk), (pl|sl)\[[^;]*;")
+# the lo-half issues of the register-A products:
+# wgmma_rs(o | dq | dv | dk, pl | sl ...)
+LO_ISSUE = re.compile(r"\n\s*wgmma_rs\((o|dq|dv|dk), (pl|sl)\[[^;]*;")
 
 
 def card_line() -> str:
@@ -67,7 +68,7 @@ def build_rounded(_build, work: str) -> dict:
     csrc = os.path.join(work, "csrc")
     shutil.copytree(_build.CSRC, csrc)
     libs = {}
-    for name, want in (("flash_fwd", 1), ("flash_bwd", 2)):
+    for name, want in (("flash_fwd", 1), ("flash_bwd", 3)):
         path = os.path.join(csrc, f"{name}.cu")
         with open(path) as f:
             src, n = LO_ISSUE.subn("\n", f.read())
@@ -108,19 +109,24 @@ def main() -> None:
         scale = HD ** -0.5
         out_ref, lse_ref = A.flash_attention_fwd_ref(q, k, v)
         delta = A.attention_delta(out_ref, do)
+        dq_ref = A.flash_attention_bwd_dq_ref(q, k, v, do, lse_ref, delta)
         dk_ref, dv_ref = A.flash_attention_bwd_dkv_ref(q, k, v, do, lse_ref, delta)
         runs = {"split": [], "rounded": []}
         errs = {}
         for which in ["split", "rounded", "rounded", "split"] * args.pairs:
             _build._libs.update(builds[which])
             out, _ = A._launch(q, k, v, True, scale, need_lse=True)
+            dq = A.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta)
             dk, dv = A.flash_attention_bwd_dkv(q, k, v, do, lse_ref, delta)
             errs[which] = dict(out=row_rel_err(out, out_ref),
+                               dq=grad_row_rel_err(dq, dq_ref),
                                dk=grad_row_rel_err(dk, dk_ref),
                                dv=grad_row_rel_err(dv, dv_ref))
             runs[which].append(dict(
                 fwd_lse_ms=time_ms(torch, lambda: A._launch(q, k, v, True, scale,
                                                              need_lse=True)),
+                dq_ms=time_ms(torch, lambda: A.flash_attention_bwd_dq(
+                    q, k, v, do, lse_ref, delta)),
                 dkv_ms=time_ms(torch, lambda: A.flash_attention_bwd_dkv(
                     q, k, v, do, lse_ref, delta))))
         _build._libs.update(builds["split"])

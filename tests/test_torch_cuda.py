@@ -17,10 +17,12 @@ rounding noise can step either way on the two devices (on an H100, one of
 16,384 wq entries ended 3.1e-5 apart, against steps of ~1.5e-4); such
 outliers weigh ~1e-3 of a leaf's change, a wrong update rule all of it.
 The int4 matmul (fp32 output) and the int8 flash-decode take the same
-per-row tolerances as the other kernels. A1 and A3 in bf16 at head dim 64
-and 128 run their tensor-core bodies (wgmma + TMA, P and dS split into
-two bf16 halves) and take the bf16 tolerances; fp32 runs the FMA bodies
-and takes fp32's.
+per-row tolerances as the other kernels; its two bodies (split-K
+mma.sync at M <= 16, wgmma + TMA above) are each held to the plain version
+and must repeat their output bit for bit. A1, A2 and A3 in bf16 at head
+dim 64 and 128 run their tensor-core bodies (wgmma + TMA, P and dS split
+into two bf16 halves) and take the bf16 tolerances; fp32 runs the FMA
+bodies and takes fp32's.
 """
 
 import dataclasses
@@ -47,7 +49,8 @@ from kubetorch_tpu_torch.ops.decode_attention import (decode_attention,
                                                       decode_attention_quant,
                                                       decode_attention_quant_ref,
                                                       decode_attention_ref)
-from kubetorch_tpu_torch.ops.quant_matmul import q4_matmul, q4_matmul_ref
+from kubetorch_tpu_torch.ops.quant_matmul import (q4_matmul, q4_matmul_body,
+                                                  q4_matmul_ref, q4_split_plan)
 from kubetorch_tpu_torch.ops.tolerance import (LSE_ATOL, ROW_RTOL,
                                                grad_row_rel_err, row_rel_err)
 from kubetorch_tpu_torch.serve import GenerationEngine, quantize_rows
@@ -257,14 +260,41 @@ def test_tensor_core_kernels_read_strided_views(cuda, hd, s):
     assert row_rel_err(got, want) <= ROW_RTOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_dq_tensor_core_body_matches_plain(cuda, hd, group, causal):
+    """A2's tensor-core body (bwd_dq_sm90) at a ragged S = 1000, GQA groups
+    1, 2 and 4 (kv-head h * NKV / N), q/k/v strided views of one fused
+    projection and dO a slice of a wider tensor, per row."""
+    assert tensor_core_body("dq", torch.bfloat16, hd)
+    s, nkv = 1000, 2
+    nh = nkv * group
+    g = torch.Generator(device=cuda).manual_seed(11 + group)
+    qkv = torch.randn(1, s, nh + 2 * nkv, hd, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :nh], qkv[:, :, nh:nh + nkv], qkv[:, :, nh + nkv:]
+    do = torch.randn(1, s, nh + 4, hd, generator=g,
+                     device=cuda).bfloat16()[:, :, 2:2 + nh]
+    out, lse = flash_attention_fwd_ref(q, k, v, causal=causal)
+    delta = attention_delta(out, do)
+    before = flash_attention.bwd_dq_launches
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_dq_launches == before + 1
+    want = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+    assert grad_row_rel_err(dq, want) <= ROW_RTOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("hd", [64, 128])
 def test_tensor_core_kernels_capture_in_a_cuda_graph(cuda, hd):
-    """A1 (with and without LSE) and A3 record into a CUDA graph (the TMA
-    maps are kernel parameters encoded on the host); the replay equals the
-    eager call bit for bit."""
+    """A1 (with and without LSE), A2 and A3 record into a CUDA graph (the
+    TMA maps are kernel parameters encoded on the host); the replay equals
+    the eager call bit for bit."""
     q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 320, 8, 2, hd, seed=8)
     out, lse = _launch(q, k, v, True, hd ** -0.5, need_lse=True)
     delta = attention_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     plain = flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -272,11 +302,12 @@ def test_tensor_core_kernels_capture_in_a_cuda_graph(cuda, hd):
     with torch.cuda.graph(graph):
         g_out, g_lse = _launch(q, k, v, True, hd ** -0.5, need_lse=True)
         g_plain = flash_attention(q, k, v)
+        g_dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
         g_dk, g_dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     graph.replay()
     torch.cuda.synchronize()
-    for got, want in ((g_out, out), (g_lse, lse), (g_plain, plain), (g_dk, dk),
-                      (g_dv, dv)):
+    for got, want in ((g_out, out), (g_lse, lse), (g_plain, plain), (g_dq, dq),
+                      (g_dk, dk), (g_dv, dv)):
         assert torch.equal(got, want)
 
 
@@ -301,7 +332,8 @@ def test_wrappers_raise_on_misaligned_views(cuda):
     shifted = base[..., 1:65]                # base 2 bytes off 16
     narrowed = torch.zeros(1, 128, 4, 68, device=cuda,
                            dtype=torch.bfloat16)[..., :64]   # rows of 136 bytes
-    before = (flash_attention.launches, flash_attention.bwd_dkv_launches)
+    before = (flash_attention.launches, flash_attention.bwd_dq_launches,
+              flash_attention.bwd_dkv_launches)
     with pytest.raises(ValueError, match="^q rows must be 16-byte aligned"):
         flash_attention(shifted, good[:, :, :2], good[:, :, :2])
     with pytest.raises(ValueError, match="^k rows must be 16-byte aligned"):
@@ -310,14 +342,18 @@ def test_wrappers_raise_on_misaligned_views(cuda):
     with pytest.raises(ValueError, match="^dout rows must be 16-byte aligned"):
         flash_attention_bwd_dkv(good, good[:, :, :2], good[:, :, :2], shifted,
                                 lse, lse)
-    assert (flash_attention.launches, flash_attention.bwd_dkv_launches) == before
+    with pytest.raises(ValueError, match="^v rows must be 16-byte aligned"):
+        flash_attention_bwd_dq(good, good[:, :, :2], narrowed[:, :, :2], good,
+                               lse, lse)
+    assert (flash_attention.launches, flash_attention.bwd_dq_launches,
+            flash_attention.bwd_dkv_launches) == before
 
 
 def test_fp32_and_small_head_dims_take_the_fma_body(cuda):
     """The tensor-core bodies serve bf16 at head dim 64 and 128 only; fp32
     (which wgmma cannot take) and bf16 at 16 and 32 keep the FMA bodies,
     and the fp32 ones still meet fp32's tolerance."""
-    for kernel in ("fwd", "dkv"):
+    for kernel in ("fwd", "dq", "dkv"):
         for hd in (16, 32, 64, 128):
             assert tensor_core_body(kernel, torch.bfloat16, hd) == (hd >= 64)
             assert not tensor_core_body(kernel, torch.float32, hd)
@@ -326,6 +362,9 @@ def test_fp32_and_small_head_dims_take_the_fma_body(cuda):
     want_out, want_lse = flash_attention_fwd_ref(q, k, v)
     assert row_rel_err(out, want_out) <= ROW_RTOL[torch.float32]
     delta = attention_delta(want_out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, want_lse, delta)
+    want_dq = flash_attention_bwd_dq_ref(q, k, v, do, want_lse, delta)
+    assert grad_row_rel_err(dq, want_dq) <= ROW_RTOL[torch.float32]
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, want_lse, delta)
     want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, want_lse, delta)
     assert grad_row_rel_err(dk, want_dk) <= ROW_RTOL[torch.float32]
@@ -454,6 +493,60 @@ def test_q4_kernel_reads_a_layer_slice_and_group_64(cuda):
     p, s = leaf["__kt_q4__"][1], leaf["scale"][1]
     assert row_rel_err(q4_matmul(x, p, s), q4_matmul_ref(x, p, s)) \
         <= ROW_RTOL[torch.float32]
+
+
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 300, 2048])
+def test_q4_bodies_match_plain_and_repeat_bitwise(cuda, m, group):
+    """Both bodies at the tile edges of each (M <= 16: split-K mma.sync;
+    above: wgmma + TMA, 128-row tiles), the route kt_q4_matmul_body
+    reports, and the same bits from two calls (split-K sums its partials
+    in split order, no atomics)."""
+    k, n = 4096, 1024
+    x, packed, scale = _q4_operands(cuda, m, k, n, group=group, seed=m)
+    groups = scale.shape[0]
+    body = q4_matmul_body(m, k, n, groups)
+    assert body == ("splitk" if m <= 16 else "wgmma")
+    if body == "splitk":
+        assert q4_split_plan(m, k, n, groups) > 1
+    first = q4_matmul(x, packed, scale)
+    second = q4_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert row_rel_err(first, q4_matmul_ref(x, packed, scale)) \
+        <= ROW_RTOL[torch.float32]
+
+
+@pytest.mark.parametrize("m", [8, 300])
+def test_q4_bodies_read_a_layer_slice(cuda, m):
+    """Layer 2 of a stacked (L, K/2, N) leaf: a base offset of two layers'
+    bytes, through the TMA maps (wgmma) and the plain loads (split-K)."""
+    w = torch.randn(3, 1024, 512, device=cuda) / 32
+    leaf = _quantize_leaf_int4(w, group=128)
+    x = torch.randn(m, 1024, device=cuda)
+    p, s = leaf["__kt_q4__"][2], leaf["scale"][2]
+    assert p.data_ptr() != leaf["__kt_q4__"].data_ptr()
+    assert row_rel_err(q4_matmul(x, p, s), q4_matmul_ref(x, p, s)) \
+        <= ROW_RTOL[torch.float32]
+
+
+def test_q4_bodies_capture_in_a_cuda_graph(cuda):
+    """Split-K (its partial buffer allocated and summed inside the capture)
+    and the wgmma body record into one graph; a replay on new inputs
+    equals the eager calls on them bit for bit."""
+    ops = [_q4_operands(cuda, m, 4096, 1024, seed=20 + m) for m in (8, 300)]
+    for x, p, s in ops:
+        q4_matmul(x, p, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = [q4_matmul(x, p, s) for x, p, s in ops]
+    for x, _, _ in ops:
+        x.mul_(-0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    for y, (x, p, s) in zip(ys, ops):
+        assert torch.equal(y, q4_matmul(x, p, s))
 
 
 def test_q4_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -304,6 +304,102 @@ def test_q4_row_check_rejects_planted_faults(fault):
         assert row_rel_err(one, want1) <= ROW_RTOL[torch.float32]
 
 
+LLAMA_8B_PROJECTIONS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+
+
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_q4_split_plan_covers_every_group_once(m, group):
+    """At decode (M <= 16) the splits of every Llama-3-8B projection are
+    non-empty runs of whole groups that together take each group of a
+    plane exactly once, at most one split per group; uneven runs included
+    (e.g. 56 groups of K = 14336 at group 128 in 13 splits)."""
+    uneven = 0
+    for k, n in LLAMA_8B_PROJECTIONS:
+        groups = k // group
+        per_plane = groups // 2
+        splits = ops_q4.q4_split_plan(m, k, n, groups)
+        assert 1 <= splits <= per_plane
+        ranges = ops_q4.q4_split_ranges(per_plane, splits)
+        assert len(ranges) == splits and all(t0 < t1 for t0, t1 in ranges)
+        taken = [t for t0, t1 in ranges for t in range(t0, t1)]
+        assert taken == list(range(per_plane))
+        uneven += len({t1 - t0 for t0, t1 in ranges}) > 1
+        # the grid covers the card's SMs unless every group is its own split
+        blocks = -(-n // ops_q4.SPLITK_BLOCK_N) * splits
+        assert blocks >= 132 or splits == per_plane
+    assert uneven
+
+
+def test_q4_split_plan_never_asks_for_more_splits_than_groups():
+    """A shape whose grid would want more splits than a plane has groups
+    gets one split per group; prefill rows are never split; ranges of more
+    splits than groups are refused."""
+    assert ops_q4.q4_split_plan(8, 256, 128, 2) == 1        # one group
+    assert ops_q4.q4_split_plan(8, 1024, 128, 8) == 4       # 4 groups, wants 396
+    assert ops_q4.q4_split_plan(17, 4096, 1024, 32) == 1
+    assert ops_q4.q4_split_plan(2048, 4096, 1024, 32) == 1
+    with pytest.raises(ValueError, match="splits"):
+        ops_q4.q4_split_ranges(3, 5)
+    with pytest.raises(ValueError, match="splits"):
+        ops_q4.q4_split_ranges(3, 0)
+
+
+def _q4_splitk(x, packed, scale, ranges):
+    """The split-K body's arithmetic in plain torch: per split, the groups
+    of its run in order, each group's lo and hi products scaled by their
+    own rows and added; then the splits' partials summed in split order."""
+    xb = x.to(torch.bfloat16).float()
+    half, hg = packed.shape[0], scale.shape[0] // 2
+    g = half // hg
+    lo, hi = ops_q4.unpack_int4(packed)
+    parts = []
+    for t0, t1 in ranges:
+        part = torch.zeros(x.shape[0], packed.shape[1])
+        for t in range(t0, t1):
+            r = slice(t * g, (t + 1) * g)
+            part = part + ((xb[:, r] @ lo[r].float()) * scale[t]
+                           + (xb[:, half + t * g: half + (t + 1) * g]
+                              @ hi[r].float()) * scale[hg + t])
+        parts.append(part)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+# (M, K, N, group, splits): the plan's choice, and uneven runs
+SPLITK_CASES = [(8, 1024, 512, 64, None), (16, 1024, 256, 64, 3),
+                (1, 768, 128, 64, 5), (8, 2048, 128, 128, None)]
+
+
+@pytest.mark.parametrize("m,k,n,g,splits", SPLITK_CASES)
+def test_q4_splitk_emulation_matches_pallas(m, k, n, g, splits):
+    x, packed, scale, want = _q4_case(m, k, n, g)
+    args = tuple(map(torch.from_numpy, (x, packed, scale)))
+    per_plane = scale.shape[0] // 2
+    splits = splits or ops_q4.q4_split_plan(m, k, n, scale.shape[0])
+    assert splits > 1
+    got = _q4_splitk(*args, ops_q4.q4_split_ranges(per_plane, splits))
+    assert row_rel_err(got, want) <= ROW_RTOL[torch.float32]
+
+
+@pytest.mark.parametrize("fault", ["dropped split", "group twice"])
+def test_q4_splitk_row_check_rejects_planted_faults(fault):
+    """A split whose partial never reaches the output, or a group that two
+    splits both count, moves rows far past the fp32 row tolerance."""
+    x, packed, scale, want = _q4_case(8, 1024, 512, 64)
+    args = tuple(map(torch.from_numpy, (x, packed, scale)))
+    ranges = ops_q4.q4_split_ranges(scale.shape[0] // 2, 3)
+    if fault == "dropped split":
+        ranges = ranges[:1] + ranges[2:]
+    else:
+        (a0, a1), (b0, b1) = ranges[0], ranges[1]
+        ranges = [(a0, a1 + 1), (b0, b1)] + ranges[2:]   # group a1 in both
+    assert row_rel_err(_q4_splitk(*args, ranges), want) \
+        > 100 * ROW_RTOL[torch.float32]
+
+
 def test_q4_wrapper_rejects_bad_shapes():
     x = torch.zeros(2, 256)
     with pytest.raises(ValueError, match="shape"):
