@@ -8,22 +8,29 @@
    source, all started together) and prints the total build time. Fails
    unless the SASS of each tensor-core kernel function (A1, A2 and A3's
    bf16 bodies, B3's prefill body) holds wgmma (HGMMA) and TMA loads
-   (UTMALDG), counted per function, and prints the kernels' registers and
-   local memory (spills), failing on a spill.
+   (UTMALDG), and the split flash-decode body (B1, B2) mma.sync (HMMA) and
+   cp.async loads (LDGSTS), counted per function (B2 with half again B1's
+   HMMA: the lo half of P.vs), and prints the kernels'
+   registers and local memory (spills), failing on a spill.
 3. Holds each kernel against its plain PyTorch version, row by row
    (kubetorch_tpu_torch/ops/tolerance.py), in bf16 and fp32, and times
    kernel, plain version and the nearest PyTorch call (SDPA or a cuBLAS
    matmul, a yardstick the port never calls) in CUDA graphs beside the
    card's least time for the same work: the flash forward (A1, bf16 at
-   every prefill bucket of the engine and a ragged T) and flash-decode
-   (B1) at the engine's shapes; the int8 flash-decode (B2) at the same
-   grid; the int4 matmul (B3) at Llama-3-8B's projections, 1, 8 and 17
+   every prefill bucket of the engine and a ragged T); flash-decode over
+   a bf16 cache (B1) and over an int8 cache (B2) at four shapes of
+   Llama-3-8B's grid (DECODE_SHAPES: a ragged 8 x 2048, the engine's fill
+   at 40-token prompts, one request of 8192 rows, the full 8 x 2048
+   grid), each through the body
+   kt_decode_attention_body reports (split for bf16 q, FMA for fp32) and
+   bitwise equal over two calls, B2 also cold in L2; the int4 matmul (B3) at Llama-3-8B's projections, 1, 8 and 17
    rows (both bodies' edges), a ragged 300 and 2048-row prefills, each
    through the body kt_q4_matmul_body reports; A1 with its LSE, dQ (A2)
    and dK/dV (A3) at the training shape and at head dim 128. For the
    tensor-core A1, A2 and A3 and for B3 also TFLOP/s of the counted work,
    the share of the bound and, on the printed line only, the previous
-   design's bf16 time (quoted from PERF.md, not measured here); for A1-A3
+   design's bf16 time (quoted from PERF.md, not measured here); for B1 and
+   B2 the share of the bound also in the kernels line; for A1-A3
    the fp32-FMA body's time on fp32 inputs of the same shape (measured).
 4. Serves Llama-3-8B at full width (random weights from a seed) through
    GenerationEngine: 8 slots, max_len 2048, greedy, 12 requests with
@@ -90,6 +97,24 @@ PREV_Q4_MS = {(8, 4096, 4096): 0.0368, (8, 4096, 1024): 0.0370,
               (8, 4096, 14336): 0.0491, (8, 14336, 4096): 0.1189,
               (300, 4096, 4096): 0.122, (2048, 4096, 1024): 0.136,
               (2048, 4096, 14336): 1.921, (2048, 14336, 4096): 1.887}
+# flash-decode's shapes (B, S, pos) at Llama-3-8B's NH=32, NKV=8, Hd=128:
+# (a) a ragged grid (0, tile edges 63/64, mid values and S-1), (b) the
+# engine's fill at 40-token prompts, (c) one request at the 8B's context,
+# (d) the engine's grid full
+DECODE_SHAPES = {"a": (8, 2048, [0, 63, 64, 700, 1024, 1500, 2000, 2047]),
+                 "b": (8, 2048, [40, 45, 50, 55, 60, 64, 68, 71]),
+                 "c": (1, 8192, [8191]),
+                 "d": (8, 2048, [2047] * 8)}
+# B1's and B2's bf16 times (B2 warm / cold L2) before the split body, with
+# one block per (kv-head, slot) and fp32 FMA loops: at (a) PERF.md section
+# 6, the earlier design's times in the kernel table (this script); at (b),
+# (c) and (d) kubetorch_tpu_torch/tools/decode_ab.py on the
+# parent tree beside the split body, the mean of six runs in three calls
+# ((b), (c)) and of two runs in one call ((d)) (H100 80GB HBM3, 700 W)
+PREV_DECODE_MS = {"a": dict(b1=0.164, b2=0.151, b2_cold=0.188),
+                  "b": dict(b1=0.01084, b2=0.01155, b2_cold=0.01207),
+                  "c": dict(b1=0.76612, b2=0.59794, b2_cold=0.74962),
+                  "d": dict(b1=0.22052, b2=0.15839, b2_cold=0.19181)}
 # the same source, the training phase with A1 and A3 on the tensor cores
 # and A2 still the fp32-FMA body
 PREV_TRAIN_TOKENS_PER_S = 20582
@@ -209,18 +234,47 @@ def rate_line(flops: float, ms: float, bound_ms: float) -> dict:
     return dict(tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
 
 
-# the tensor-core kernel functions, by library: each must hold wgmma and
-# TMA loads in its own SASS (a count over a library would let one kernel's
-# wgmma stand for another that still runs FMAs)
-TENSOR_CORE_KERNELS = {"flash_fwd": ("flash_fwd_sm90",),
-                       "flash_bwd": ("bwd_dq_sm90", "bwd_dkv_sm90"),
-                       "quant_matmul": ("q4_wgmma",)}
+# the tensor-core kernel functions, by library, and the instructions each
+# must hold in its own SASS (a count over a library would let one kernel's
+# tensor-core products stand for another that still runs FMAs): wgmma and
+# TMA loads for A1, A2, A3 and B3's prefill body; mma.sync and cp.async
+# loads for the split flash-decode body (B1, B2)
+WGMMA_TMA = ("HGMMA", "UTMALDG")
+TENSOR_CORE_KERNELS = {"flash_fwd": {"flash_fwd_sm90": WGMMA_TMA},
+                       "flash_bwd": {"bwd_dq_sm90": WGMMA_TMA,
+                                     "bwd_dkv_sm90": WGMMA_TMA},
+                       "quant_matmul": {"q4_wgmma": WGMMA_TMA},
+                       "decode_attention": {"decode_split": ("HMMA", "LDGSTS")}}
+
+
+def check_decode_lo_half(funcs: dict) -> None:
+    """B2's P.vs goes through the tensor cores as two bf16 halves (hi and
+    lo), B1's P once. In each split body S = q.K^T and P.V take the same
+    number of mma.sync (Hd / 8 per warp and tile), so B1 holds 2 of them per
+    step and B2 3: fails unless each decode_split<HD, true> holds at least
+    1.5x the HMMA of decode_split<HD, false>, which a B2 that rounds P.vs
+    once to bf16 (a different result, within bf16's output tolerance) would
+    not."""
+    for hd in (64, 128):
+        count = {}
+        for quant in (0, 1):
+            tag = f"decode_splitILi{hd}ELb{quant}E"
+            bodies = [b for f, b in funcs.items() if tag in f]
+            if len(bodies) != 1:
+                fail(f"decode_attention: {len(bodies)} functions {tag}")
+            count[quant] = bodies[0].count("HMMA")
+        print(f"sass decode_attention Hd={hd} HMMA B1={count[0]} "
+              f"B2={count[1]} (B2 >= 1.5 x B1: hi and lo P.vs)", flush=True)
+        if 2 * count[1] < 3 * count[0]:
+            fail(f"decode_attention Hd={hd}: B2 holds {count[1]} HMMA, "
+                 f"B1 {count[0]}: no lo half of P.vs")
 
 
 def check_tensor_core_sass(_build) -> None:
     """Per kernel function: the bf16 bodies of A1, A2 and A3 and B3's
-    prefill body must each hold wgmma (HGMMA) and TMA loads (UTMALDG), in
-    every instantiation. Prints every kernel's registers and local memory
+    prefill body must each hold wgmma (HGMMA) and TMA loads (UTMALDG), the
+    split flash-decode body mma.sync (HMMA) and cp.async loads (LDGSTS), in
+    every instantiation, B2's with the lo half of P.vs. Prints every kernel's registers and local memory
     and fails on a spill (local memory) in a tensor-core kernel."""
     import re
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -230,15 +284,17 @@ def check_tensor_core_sass(_build) -> None:
                               text=True, check=True).stdout
         parts = re.split(r"^\s*Function : (\S+)\s*$", sass, flags=re.M)
         funcs = dict(zip(parts[1::2], parts[2::2]))
-        for kernel in kernels:
+        for kernel, ops in kernels.items():
             found = {f: b for f, b in funcs.items() if kernel in f}
             if not found:
                 fail(f"{name}: no kernel function named {kernel} in the SASS")
             for func, body in found.items():
-                counts = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
+                counts = {op: body.count(op) for op in ops}
                 print(f"sass {name} {kernel} ({func}): {counts}", flush=True)
                 if not all(counts.values()):
-                    fail(f"{name} {func}: SASS lacks wgmma or TMA {counts}")
+                    fail(f"{name} {func}: SASS lacks {ops}: {counts}")
+        if name == "decode_attention":
+            check_decode_lo_half(funcs)
         usage = subprocess.run([tool, "--dump-resource-usage", lib],
                                capture_output=True, text=True, check=True).stdout
         lines = usage.splitlines()
@@ -333,85 +389,102 @@ def check_flash(torch, F, ops_attn):
     return rec
 
 
-def check_decode(torch, F, ops_dec):
-    """B1 at the engine's grid: B=8, S=2048, NKV=8, NH=32, Hd=128; bf16 and
-    fp32 against the plain version, then bf16 times."""
-    b, s, nh, nkv, hd = 8, 2048, 32, 8, 128
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn(b, nh, hd, generator=gen, device="cuda")
-    ck = torch.randn(b, s, nkv, hd, generator=gen, device="cuda")
-    cv = torch.randn(b, s, nkv, hd, generator=gen, device="cuda")
-    # 0, tile edges (63/64), mid values and the last row S-1
-    pos_list = [0, 63, 64, 700, 1024, 1500, 2000, s - 1]
-    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-    for dtype in (torch.float32, torch.bfloat16):
-        q, ck, cv = q.to(dtype), ck.to(dtype), cv.to(dtype)
-        got = ops_dec.decode_attention(q, ck, cv, pos)
-        want = ops_dec.decode_attention_ref(q, ck, cv, pos)
-        err, rel = compare("decode_attention", got, want)
-    ms = time_ms(torch, lambda: ops_dec.decode_attention(q, ck, cv, pos))
-    plain = time_ms(torch, lambda: ops_dec.decode_attention_ref(q, ck, cv, pos))
-    mask = (torch.arange(s, device="cuda")[None, :] <= pos[:, None])[:, None, None]
-    q4, kt, vt = q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2)
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, kt, vt, attn_mask=mask, enable_gqa=True))
+def decode_bound(b, s, pos_list, quant: bool):
+    """(bound_ms, bound_by, bytes) of one flash-decode call at NH=32,
+    NKV=8, Hd=128: q read and out written once in bf16, the live K and V
+    rows (bf16, or int8 with a 4-byte scale each) and pos; 4 flops per live
+    row, query head and head dim."""
+    nh, nkv, hd = 32, 8, 128
     live = sum(min(p + 1, s) for p in pos_list)
-    nbytes = 2 * b * nh * hd * 2 + 2 * live * nkv * hd * 2 + 4 * b
-    flops = 4 * nh * hd * live
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"kernel decode_attention B={b} S={s} pos={pos_list} bf16: "
-          f"ms={ms} plain_ms={plain} sdpa_ms={lib} bound_ms={b_ms} "
-          f"({b_by})", flush=True)
-    return dict(max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                shape=f"B={b} S={s} NH={nh} NKV={nkv} Hd={hd} bf16")
+    row = hd + 4 if quant else 2 * hd
+    nbytes = 2 * b * nh * hd * 2 + 2 * live * nkv * row + 4 * b
+    return (*bound(nbytes, 4 * nh * hd * live), nbytes)
 
 
-def check_decode_quant(torch, F, ops_dec):
-    """B2 at the engine's int8 grid: B=8, S=2048, NKV=8, NH=32, Hd=128, B1's
-    positions; q in fp32 and bf16 against the plain version, then bf16
-    times. Library: SDPA with a boolean mask over the K/V dequantized to
-    bf16 (outside the timing)."""
+def check_decode_shape(torch, F, ops_dec, shape, quant: bool, gen):
+    """B1 (``quant`` False) or B2 at one of DECODE_SHAPES: bf16 q (and fp32
+    q at shape a) against the plain version per row, the route of each
+    (split body for bf16, FMA body for fp32), bitwise equal over two calls,
+    then bf16 times of the kernel, the plain version and SDPA (for B2 over
+    K/V dequantized to bf16, outside the timing), B2 also cold in L2."""
     from kubetorch_tpu_torch.serve import dequantize_rows, quantize_rows
-    b, s, nh, nkv, hd = 8, 2048, 32, 8, 128
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, s, pos_list = DECODE_SHAPES[shape]
+    nh, nkv, hd = 32, 8, 128
+    name = "decode_attention_quant" if quant else "decode_attention"
     q = torch.randn(b, nh, hd, generator=gen, device="cuda")
-    kq, ks = quantize_rows(torch.randn(b, s, nkv, hd, generator=gen, device="cuda"))
-    vq, vs = quantize_rows(torch.randn(b, s, nkv, hd, generator=gen, device="cuda"))
-    pos_list = [0, 63, 64, 700, 1024, 1500, 2000, s - 1]
+    kf = torch.randn(b, s, nkv, hd, generator=gen, device="cuda")
+    vf = torch.randn(b, s, nkv, hd, generator=gen, device="cuda")
     pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-    for dtype in (torch.float32, torch.bfloat16):
-        q = q.to(dtype)
-        got = ops_dec.decode_attention_quant(q, kq, ks, vq, vs, pos)
-        want = ops_dec.decode_attention_quant_ref(q, kq, ks, vq, vs, pos)
-        err, rel = compare("decode_attention_quant", got, want)
-    ms = time_ms(torch, lambda: ops_dec.decode_attention_quant(
-        q, kq, ks, vq, vs, pos))
-    plain = time_ms(torch, lambda: ops_dec.decode_attention_quant_ref(
-        q, kq, ks, vq, vs, pos))
+    if quant:
+        (kq, ks), (vq, vs) = quantize_rows(kf), quantize_rows(vf)
+        cache = (kq, ks, vq, vs)
+        kern, plain = ops_dec.decode_attention_quant, ops_dec.decode_attention_quant_ref
+    else:
+        cache = (kf, vf)
+        kern, plain = ops_dec.decode_attention, ops_dec.decode_attention_ref
+    splits = -(-s // ops_dec.decode_split_plan(b, nkv, s))
+    for dtype in ((torch.float32, torch.bfloat16) if shape == "a"
+                  else (torch.bfloat16,)):
+        qd = q.to(dtype)
+        args = cache if quant else tuple(t.to(dtype) for t in cache)
+        body = ops_dec.decode_attention_body(dtype, hd, nh, nkv)
+        if body != ("split" if dtype == torch.bfloat16 else "fma"):
+            fail(f"{name} {dtype}: body {body}")
+        got = kern(qd, *args, pos)
+        err, rel = compare(f"{name} ({shape}) {body} body", got,
+                           plain(qd, *args, pos))
+        if not torch.equal(got, kern(qd, *args, pos)):
+            fail(f"{name} ({shape}) {dtype}: two calls differ")
+    q = qd
+    del got, kf, vf
+    ms = time_ms(torch, lambda: kern(q, *args, pos))
+    plain_ms = time_ms(torch, lambda: plain(q, *args, pos))
     mask = (torch.arange(s, device="cuda")[None, :] <= pos[:, None])[:, None, None]
-    kt = dequantize_rows(kq, ks).bfloat16().transpose(1, 2)
-    vt = dequantize_rows(vq, vs).bfloat16().transpose(1, 2)
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True))
-    ms_cold = time_cold_ms(torch, ops_dec.decode_attention_quant,
-                           (q, kq, ks, vq, vs, pos))
-    lib_cold = time_cold_ms(
-        torch, lambda q_, k_, v_: F.scaled_dot_product_attention(
-            q_[:, :, None], k_, v_, attn_mask=mask, enable_gqa=True),
-        (q, kt, vt))
-    live = sum(min(p + 1, s) for p in pos_list)
-    nbytes = 2 * live * nkv * (hd + 4) + 2 * b * nh * hd * 2 + 4 * b
-    flops = 4 * nh * hd * live
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"kernel decode_attention_quant B={b} S={s} pos={pos_list} bf16 q, "
-          f"int8 K/V: ms={ms} ms_cold_l2={ms_cold} plain_ms={plain} "
-          f"sdpa_ms={lib} sdpa_ms_cold_l2={lib_cold} bound_ms={b_ms} "
-          f"({b_by}; {nbytes} bytes)", flush=True)
-    return dict(max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                ms_cold_l2=ms_cold, library_ms_cold_l2=lib_cold,
-                shape=f"B={b} S={s} NH={nh} NKV={nkv} Hd={hd} bf16 q, int8 K/V")
+    if quant:
+        kt = dequantize_rows(kq, ks).bfloat16().transpose(1, 2)
+        vt = dequantize_rows(vq, vs).bfloat16().transpose(1, 2)
+    else:
+        kt, vt = args[0].transpose(1, 2), args[1].transpose(1, 2)
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_[:, :, None], k_, v_,
+                                              attn_mask=mask, enable_gqa=True)
+
+    lib = time_ms(torch, lambda: sdpa(q, kt, vt))
+    b_ms, b_by, nbytes = decode_bound(b, s, pos_list, quant)
+    prev = PREV_DECODE_MS[shape]
+    rec = dict(shape=f"({shape}) B={b} S={s} NH={nh} NKV={nkv} Hd={hd} "
+               f"pos={pos_list} bf16 q" + (", int8 K/V" if quant else ""),
+               body="split", splits=splits, max_abs_err=err,
+               max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib, bound_share=b_ms / ms)
+    line = (f"kernel {name} ({shape}) B={b} S={s} pos={pos_list} body=split "
+            f"splits={splits}: ms={ms} plain_ms={plain_ms} sdpa_ms={lib} "
+            f"bound_ms={b_ms} ({b_by}; {nbytes} bytes) "
+            f"bound_share={b_ms / ms} prev_design_bf16_ms="
+            f"{prev['b2' if quant else 'b1']}")
+    if quant:
+        rec["ms_cold_l2"] = time_cold_ms(torch, kern, (q, *args, pos))
+        rec["library_ms_cold_l2"] = time_cold_ms(torch, sdpa, (q, kt, vt))
+        line += (f" ms_cold_l2={rec['ms_cold_l2']} sdpa_ms_cold_l2="
+                 f"{rec['library_ms_cold_l2']} prev_design_bf16_ms_cold_l2="
+                 f"{prev['b2_cold']}")
+    print(line + " (prev: one block per kv-head and slot, PERF.md and "
+          "tools/decode_ab.py, not this run)", flush=True)
+    del q, args, cache, kt, vt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_decode(torch, F, ops_dec, quant: bool = False):
+    """B1 (or, with ``quant``, B2) at each shape of DECODE_SHAPES. Returns
+    the kernels-line record of shape (a) with every shape's beside it."""
+    gen = torch.Generator(device="cuda").manual_seed(5 if quant else 2)
+    per_shape = [check_decode_shape(torch, F, ops_dec, shape, quant, gen)
+                 for shape in DECODE_SHAPES]
+    rec = dict(per_shape[0])
+    rec["per_shape"] = per_shape
+    return rec
 
 
 def check_q4(torch, ops_q4):
@@ -1088,7 +1161,7 @@ def main() -> None:
 
     flash = check_flash(torch, F, ops_attn)
     dec = check_decode(torch, F, ops_dec)
-    dec_q = check_decode_quant(torch, F, ops_dec)
+    dec_q = check_decode(torch, F, ops_dec, quant=True)
     q4 = check_q4(torch, ops_q4)
     train_k = check_train_kernels(torch, F, ops_attn)
     flash_n, decode_n = drive_engine(torch, ops_attn, ops_dec, card)

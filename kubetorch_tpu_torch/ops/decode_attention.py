@@ -14,18 +14,24 @@ strides and touches only live rows.
   columns times ``ks``, probabilities times ``vs``), all in fp32, and the
   output is in q's type.
 
-Both are one kernel body in the CUDA source, as in the Pallas file. Each
-wrapper launches the kernel for CUDA tensors and uses its plain version
-only for CPU tensors; ``decode_attention.launches`` and
-``decode_attention_quant.launches`` count kernel launches. Neither has a
-gradient (the Pallas kernel has no VJP either): an input that requires
-grad under grad mode raises rather than return an output cut from the
-graph.
+Both are one kernel body in the CUDA source, as in the Pallas file. bf16 q
+at head dim 64 or 128 (GQA group <= 16) takes the split tensor-core body:
+the cache is cut into runs of whole 64-row tiles, one block each, and a
+log-sum-exp pass combines them. ``decode_split_plan`` picks the run length
+from (B, NKV, S) alone, so the grid never depends on ``pos``, and
+``decode_attention_body`` says which body a call takes. Each wrapper launches the kernel for CUDA tensors
+and uses its plain version only for CPU tensors;
+``decode_attention.launches`` and ``decode_attention_quant.launches`` count
+wrapper calls that launched it (one each, also where the combine pass
+follows). Neither has a gradient (the Pallas kernel has no VJP either): an
+input that requires grad under grad mode raises rather than return an
+output cut from the graph.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -36,6 +42,15 @@ from ._kernel_args import (DTYPE_CODES, check_cuda_operand,
                            strides_arg)
 
 NEG_INF = -1e30
+# the split body: cache rows per tile, the blocks a full cache should give
+# (four per SM of an H100's 132, so a ragged batch's long slots spread over
+# the card), and the fewest tiles a run holds: four, so that a block's
+# 2-stage ring overlaps loads with products and the combine reads few
+# partials (on an H100, 4-tile runs beat 2- and 8-tile runs on a ragged
+# 8 x 2048 grid and on one 8192-row request: PERF.md)
+DECODE_TILE = 64
+DECODE_TARGET_BLOCKS = 4 * 132
+DECODE_MIN_SPLIT_TILES = 4
 
 
 def decode_attention_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -82,6 +97,45 @@ def decode_attention_quant_ref(q: torch.Tensor, kq: torch.Tensor,
     return out.reshape(b, nh, hd).to(q.dtype)
 
 
+def decode_split_plan(b: int, nkv: int, s: int) -> int:
+    """Rows per split of the split body at (B, NKV, S): a whole number of
+    64-row tiles, at least ``DECODE_MIN_SPLIT_TILES`` and otherwise short
+    enough that a full cache gives about ``DECODE_TARGET_BLOCKS`` blocks of
+    (split, kv-head, slot), never longer than the cache. Pure host
+    arithmetic on the shapes: the positions never enter, so the grid is the
+    same on every decode step (a CUDA graph of the step replays it)."""
+    tiles = -(-s // DECODE_TILE)
+    per_pair = -(-DECODE_TARGET_BLOCKS // max(1, b * nkv))
+    per_split = max(DECODE_MIN_SPLIT_TILES, -(-tiles // per_pair))
+    return min(per_split, tiles) * DECODE_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def decode_attention_body(dtype: torch.dtype, hd: int, nh: int,
+                          nkv: int) -> str:
+    """Which body of the kernel a call takes: "split" (the cache split
+    across blocks, mma.sync, a combine pass) or "fma" (one block per
+    kv-head and slot, fp32 FMA loops). The same for B1 and B2. Loads the
+    library and asks it, so the answer is the dispatch's own; kept per
+    (dtype, hd, nh, nkv), since each decode step asks once a layer."""
+    fn = _build.load("decode_attention").kt_decode_attention_body
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    return ("fma", "split")[fn(DTYPE_CODES[dtype], hd, nh, nkv)]
+
+
+def _work(q: torch.Tensor, s: int, nkv: int):
+    """(split_rows, partial buffer or None) for a launch: the buffer holds
+    each split's acc (Hd values) and (m, l) for every query row, fp32, from
+    the caching allocator, as B3's split buffer is."""
+    b, nh, hd = q.shape
+    split_rows = decode_split_plan(b, nkv, s)
+    splits = -(-s // split_rows)
+    if splits == 1 or decode_attention_body(q.dtype, hd, nh, nkv) != "split":
+        return split_rows, None
+    return split_rows, torch.empty(splits * b * nh * (hd + 2),
+                                   dtype=torch.float32, device=q.device)
+
+
 def _fn(name: str, argtypes):
     fn = getattr(_build.load("decode_attention"), name)
     if fn.argtypes is None:
@@ -93,13 +147,15 @@ def _fn(name: str, argtypes):
 def _lib():
     return _fn("kt_decode_attention",
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-               + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+               + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p])
 
 
 def _lib_quant():
     return _fn("kt_decode_attention_quant",
                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-               + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+               + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p])
 
 
 def _check_pos(pos: torch.Tensor, device: torch.device) -> None:
@@ -127,11 +183,13 @@ def _launch(q, ck, cv, pos, scale: float) -> torch.Tensor:
                            cv.stride(0), cv.stride(1), cv.stride(2),
                            out.stride(0), out.stride(1)])
     fn = _lib()
+    split_rows, work = _work(q, s, nkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
                  out.data_ptr(), DTYPE_CODES[q.dtype], b, s, nh, nkv, hd,
-                 strides, float(scale), stream)
+                 strides, float(scale), split_rows,
+                 None if work is None else work.data_ptr(), stream)
     raise_on_error("decode_attention", err)
     decode_attention.launches += 1
     return out
@@ -195,12 +253,14 @@ def _launch_quant(q, kq, ks, vq, vs, pos, scale: float) -> torch.Tensor:
                            ks.stride(0), ks.stride(1), ks.stride(2),
                            vs.stride(0), vs.stride(1), vs.stride(2)])
     fn = _lib_quant()
+    split_rows, work = _work(q, s, nkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
                  vs.data_ptr(), pos.data_ptr(), out.data_ptr(),
                  DTYPE_CODES[q.dtype], b, s, nh, nkv, hd, strides,
-                 float(scale), stream)
+                 float(scale), split_rows,
+                 None if work is None else work.data_ptr(), stream)
     raise_on_error("decode_attention_quant", err)
     decode_attention_quant.launches += 1
     return out

@@ -16,6 +16,11 @@ is about lr in size whatever the grad's, so an entry whose grad is
 rounding noise can step either way on the two devices (on an H100, one of
 16,384 wq entries ended 3.1e-5 apart, against steps of ~1.5e-4); such
 outliers weigh ~1e-3 of a leaf's change, a wrong update rule all of it.
+Flash-decode in bf16 at head dim 64 and 128 runs the split body (the cache
+cut into runs of whole 64-row tiles across blocks, mma.sync, a combine
+pass in split order): it takes the bf16 tolerance at Llama-3-8B's decode
+shapes and at split edges, and must repeat its output bit for bit, eagerly
+and under CUDA-graph replay; fp32 q and head dim 32 keep the FMA body.
 The int4 matmul (fp32 output) and the int8 flash-decode take the same
 per-row tolerances as the other kernels; its two bodies (split-K
 mma.sync at M <= 16, wgmma + TMA above) are each held to the plain version
@@ -30,6 +35,7 @@ import dataclasses
 import pytest
 import torch
 
+from chip_smoke import DECODE_SHAPES
 from kubetorch_tpu_torch.models import common
 from kubetorch_tpu_torch.models.llama import (LlamaConfig, llama_init,
                                               llama_loss_chunked)
@@ -46,9 +52,11 @@ from kubetorch_tpu_torch.ops.attention import (_launch, attention_delta,
 from kubetorch_tpu_torch.models.quant import (_quantize_leaf_int4,
                                               quantize_params_int4)
 from kubetorch_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      decode_attention_body,
                                                       decode_attention_quant,
                                                       decode_attention_quant_ref,
-                                                      decode_attention_ref)
+                                                      decode_attention_ref,
+                                                      decode_split_plan)
 from kubetorch_tpu_torch.ops.quant_matmul import (q4_matmul, q4_matmul_body,
                                                   q4_matmul_ref, q4_split_plan)
 from kubetorch_tpu_torch.ops.tolerance import (LSE_ATOL, ROW_RTOL,
@@ -673,3 +681,137 @@ def test_quant_engine_kernel_path_matches_plain_path(cuda):
     # 3 prefills (one in the 128 bucket through A1); 2 layers; 7 B3 per
     # layer plus the 512-wide head, per prefill and per decode step
     assert auto == (2, (2 * 7 + 1) * (3 + steps), 2 * steps, 0)
+
+
+# ---------------------------------------------------------------------------
+# flash-decode's split body (B1 and B2 in bf16 at head dim 64 and 128)
+# ---------------------------------------------------------------------------
+
+# (B, S, NH, NKV, Hd, pos): Llama-3-8B's decode shapes a-c of
+# chip_smoke.py (a ragged grid, the engine's fill at 40-token prompts, one
+# request of 8192 rows), then the rows on both sides of split edges
+# (128-row splits: 127/128, 255/256) with GQA groups 1, 2 and 4 at head
+# dim 64
+DECODE_SPLIT_SHAPES = [
+    *((b, s, 32, 8, 128, pos) for b, s, pos in
+      (DECODE_SHAPES[k] for k in "abc")),
+    (6, 512, 8, 8, 64, [127, 128, 255, 256, 0, 511]),
+    (6, 512, 8, 4, 64, [127, 128, 255, 256, 1, 510]),
+    (6, 300, 8, 2, 128, [127, 128, 255, 256, 299, 64]),
+]
+
+
+def _decode_inputs(cuda, b, s, nh, nkv, hd, pos, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, nh, hd, generator=g, device=cuda).bfloat16()
+    kf = torch.randn(b, s, nkv, hd, generator=g, device=cuda)
+    vf = torch.randn(b, s, nkv, hd, generator=g, device=cuda)
+    return (q, kf, vf, torch.tensor(pos, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("b,s,nh,nkv,hd,pos", DECODE_SPLIT_SHAPES)
+def test_decode_split_body_matches_plain(cuda, b, s, nh, nkv, hd, pos):
+    """B1 and B2 through the split body, one launch per call, bitwise equal
+    over two calls."""
+    q, kf, vf, pos = _decode_inputs(cuda, b, s, nh, nkv, hd, pos)
+    assert decode_attention_body(torch.bfloat16, hd, nh, nkv) == "split"
+    ck, cv = kf.bfloat16(), vf.bfloat16()
+    (kq, ks), (vq, vs) = quantize_rows(kf), quantize_rows(vf)
+    n1, n2 = decode_attention.launches, decode_attention_quant.launches
+    o1 = decode_attention(q, ck, cv, pos)
+    o2 = decode_attention_quant(q, kq, ks, vq, vs, pos)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches, decode_attention_quant.launches) == (n1 + 1, n2 + 1)
+    assert row_rel_err(o1, decode_attention_ref(q, ck, cv, pos)) <= ROW_RTOL[torch.bfloat16]
+    assert row_rel_err(o2, decode_attention_quant_ref(q, kq, ks, vq, vs, pos)) \
+        <= ROW_RTOL[torch.bfloat16]
+    assert torch.equal(o1, decode_attention(q, ck, cv, pos))
+    assert torch.equal(o2, decode_attention_quant(q, kq, ks, vq, vs, pos))
+
+
+def test_decode_split_body_reads_engine_slices_in_place(cuda):
+    """Layer 1 of the engine's (L, B, S, NKV, Hd) bf16 grid, and of its int8
+    grid with (L, B, S, NKV) scales, at a shape that splits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    grid = torch.randn(2, 4, 1024, 8, 128, generator=g, device=cuda)
+    kq, ks = quantize_rows(grid)
+    gb = grid.bfloat16()
+    q = torch.randn(4, 32, 128, generator=g, device=cuda).bfloat16()
+    pos = torch.tensor([0, 300, 700, 1023], dtype=torch.int32, device=cuda)
+    assert decode_split_plan(4, 8, 1024) < 1024
+    got = decode_attention(q, gb[1], gb[0], pos)
+    assert row_rel_err(got, decode_attention_ref(q, gb[1], gb[0], pos)) \
+        <= ROW_RTOL[torch.bfloat16]
+    got = decode_attention_quant(q, kq[1], ks[1], kq[0], ks[0], pos)
+    want = decode_attention_quant_ref(q, kq[1], ks[1], kq[0], ks[0], pos)
+    assert row_rel_err(got, want) <= ROW_RTOL[torch.bfloat16]
+
+
+def test_decode_split_body_replays_bitwise_in_a_cuda_graph(cuda):
+    """Both wrappers record into one graph (one launch count each); a replay
+    equals the eager call bit for bit, also after the inputs change."""
+    q, kf, vf, pos = _decode_inputs(cuda, 8, 2048, 32, 8, 128,
+                                    [0, 63, 64, 700, 1024, 1500, 2000, 2047])
+    ck, cv = kf.bfloat16(), vf.bfloat16()
+    (kq, ks), (vq, vs) = quantize_rows(kf), quantize_rows(vf)
+    decode_attention(q, ck, cv, pos)            # build and load first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n1, n2 = decode_attention.launches, decode_attention_quant.launches
+    with torch.cuda.graph(graph):
+        o1 = decode_attention(q, ck, cv, pos)
+        o2 = decode_attention_quant(q, kq, ks, vq, vs, pos)
+    assert (decode_attention.launches, decode_attention_quant.launches) == (n1 + 1, n2 + 1)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(o1, decode_attention(q, ck, cv, pos))
+        assert torch.equal(o2, decode_attention_quant(q, kq, ks, vq, vs, pos))
+        q.mul_(-1.0)
+        pos.sub_(1).clamp_(min=0)
+
+
+def test_decode_fp32_and_head_dim_32_take_the_fma_body(cuda):
+    """fp32 q (which mma.sync in bf16 cannot take unrounded) and bf16 at
+    head dim 16 and 32 keep the FMA body; fp32 meets fp32's tolerance."""
+    for hd in (16, 32, 64, 128):
+        assert decode_attention_body(torch.bfloat16, hd, 32, 8) == \
+            ("split" if hd >= 64 else "fma")
+        assert decode_attention_body(torch.float32, hd, 32, 8) == "fma"
+    assert decode_attention_body(torch.bfloat16, 64, 32, 1) == "fma"   # G = 32
+    q, kf, vf, pos = _decode_inputs(cuda, 4, 512, 8, 2, 32, [0, 127, 128, 511])
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, ck, cv = q.to(dtype), kf.to(dtype), vf.to(dtype)
+        got = decode_attention(qd, ck, cv, pos)
+        assert row_rel_err(got, decode_attention_ref(qd, ck, cv, pos)) <= ROW_RTOL[dtype]
+    q, kf, vf, pos = _decode_inputs(cuda, 3, 700, 32, 8, 128, [0, 300, 699])
+    (kq, ks), (vq, vs) = quantize_rows(kf), quantize_rows(vf)
+    got = decode_attention_quant(q.float(), kq, ks, vq, vs, pos)
+    want = decode_attention_quant_ref(q.float(), kq, ks, vq, vs, pos)
+    assert row_rel_err(got, want) <= ROW_RTOL[torch.float32]
+
+
+def test_decode_wrappers_raise_on_misaligned_views(cuda):
+    """16-byte loads take 16-byte-aligned rows only: both wrappers raise,
+    naming the tensor, and launch nothing."""
+    q = torch.zeros(2, 8, 64, device=cuda, dtype=torch.bfloat16)
+    base = torch.zeros(2, 256, 2, 72, device=cuda, dtype=torch.bfloat16)
+    pos = torch.tensor([10, 200], dtype=torch.int32, device=cuda)
+    shifted = base[..., 1:65]                                    # 2 bytes off
+    narrowed = torch.zeros(2, 256, 2, 68, device=cuda,
+                           dtype=torch.bfloat16)[..., :64]       # rows of 136 B
+    kq = torch.zeros(2, 256, 2, 80, device=cuda, dtype=torch.int8)[..., 4:68]
+    ks = torch.zeros(2, 256, 2, device=cuda)
+    good = torch.zeros(2, 256, 2, 64, device=cuda, dtype=torch.int8)
+    before = (decode_attention.launches, decode_attention_quant.launches)
+    with pytest.raises(ValueError, match="^ck rows must be 16-byte aligned"):
+        decode_attention(q, shifted, base[..., :64], pos)
+    with pytest.raises(ValueError, match="^cv rows must be 16-byte aligned"):
+        decode_attention(q, base[..., :64], narrowed, pos)
+    with pytest.raises(ValueError, match="^q rows must be 16-byte aligned"):
+        decode_attention(torch.zeros(2, 8, 72, device=cuda,
+                                     dtype=torch.bfloat16)[..., 1:65],
+                         base[..., :64], base[..., :64], pos)
+    with pytest.raises(ValueError, match="^kq rows must be 16-byte aligned"):
+        decode_attention_quant(q, kq, ks, good, ks, pos)
+    assert (decode_attention.launches, decode_attention_quant.launches) == before
