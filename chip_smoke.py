@@ -37,7 +37,22 @@
    prompts over every prefill bucket, admitted while others decode. Checks
    that every request completes, that the flash-prefill and flash-decode
    kernels carried the run, and that the first-token logits of the kernel
-   path agree with the plain path (attn_impl="xla").
+   path agree with the plain path (attn_impl="xla"). Then the engine's
+   request features on the same params and grid, each run with exact
+   launch counts (A1 once per layer for every from-zero prefill at a
+   128-multiple bucket, registrations and first chunks included, none for
+   a suffix pass; B1 once per layer and decode step): a registered
+   1000-token prefix with four prefix_id requests and four full prompts
+   matched by auto_prefix (first-token logits of two of them against the
+   full prompt one-shot, their slot rows against the one-shot rows, the
+   stored prefix rows bitwise unchanged, mean TTFT of the hits beside the
+   same prompts one-shot); an 1800-token prompt admitted in chunks of 512
+   beside 7 decoding slots (first-token logits against one-shot, the wall
+   of each step that carried a chunk beside the one-shot admission's);
+   and a logit_bias request and a presence-penalty request beside 6 plain
+   ones (the bias forces its token every time, the penalty repeats
+   nothing, the plain requests' tokens and logprobs are bit-identical to
+   a run without the two; decode tokens/s with and without them).
 5. Serves Llama-3-8B again, full width and depth, quantized: int4 weights
    (group 128, llama_init_quantized) and an int8 KV cache
    (quantize_kv=True), the same warm-up and 12 requests. Checks that every
@@ -47,7 +62,12 @@
    step's logits agree between B2 and the plain int8 einsum from the same
    grid state, with B2's output in every layer of that step held per row
    to the plain einsum on the engine's own arguments; prints decode
-   tokens/s, TTFT, weight and cache GB and a decode profile.
+   tokens/s, TTFT, weight and cache GB and a decode profile. Then one
+   prefix hit behind a registered 1000-token prefix and one 1800-token
+   prompt in chunks of 512 on the same weights and an int8 grid: exact
+   launch counts (A1 for the registration and the first chunk, B3 for 7
+   projections per layer in every prefill pass and decode step, B2 per
+   layer and step) and first-token logits against one-shot prefills.
 6. Trains Llama-3.2-1B's shape (LlamaConfig.llama3_1b, full width and
    depth, bf16, random weights from a seed) with make_train_step and
    default_optimizer on one batch of 4 x 2048 tokens: warm-up steps, then
@@ -61,6 +81,7 @@
 Any failed phase exits non-zero and prints no result.
 """
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -161,6 +182,17 @@ Q4_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
              (300, 4096, 4096), (2048, 4096, 4096), (2048, 4096, 1024),
              (2048, 4096, 14336), (2048, 14336, 4096))
 Q4_GROUP = 128
+# the engine-features phases: the engine phases' grid, a 1000-token
+# registered prefix with suffixes of 40 to 200 tokens (the first four
+# submitted with its prefix_id, the others as full prompts matched by
+# auto_prefix), an 1800-token prompt admitted in chunks of 512 (three full
+# chunks and one of 264), a logit_bias that forces one token and a presence
+# penalty no logit of a random-weight model outweighs
+FEATURE_GRID = dict(slots=8, max_len=2048, prefill_buckets=(128, 256, 512, 1024))
+PREFIX_LEN = 1000
+PREFIX_SUFFIXES = (40, 64, 100, 200, 50, 90, 150, 180)
+CHUNK, CHUNK_PROMPT = 512, 1800
+BIAS_TOKEN, HUGE_PRESENCE = 12345, 1e4
 
 
 def fail(msg: str) -> None:
@@ -721,11 +753,11 @@ def drive_engine(torch, ops_attn, ops_dec, card):
         h.result(timeout=0)
 
     prompts = [prompt(n) for n in ENGINE_PROMPT_LENS]
-    ops_attn.flash_attention.launches = 0
-    ops_dec.decode_attention.launches = 0
+    launches = Launches(ops_attn, ops_dec)
+    launches.zero()
     handles, tok_s, steps = serve_requests(torch, eng, cfg, prompts)
-    flash_n = ops_attn.flash_attention.launches
-    decode_n = ops_dec.decode_attention.launches
+    got = launches.read()
+    flash_n, decode_n = got["flash_fwd"], got["decode_attention"]
     outs = check_outputs("engine", handles, cfg, prompts)
     if flash_n != cfg.n_layers * len(prompts):
         fail(f"engine: flash_fwd launched {flash_n} times, expected "
@@ -744,7 +776,380 @@ def drive_engine(torch, ops_attn, ops_dec, card):
 
     check_first_token_logits(torch, "engine", params, params, cfg, eng, prompts)
     profile_decode(torch, eng, prompts)
-    return flash_n, decode_n
+    features = drive_engine_features(torch, ops_attn, ops_dec, params, cfg, eng,
+                                     card)
+    return flash_n, decode_n, features
+
+
+class Launches:
+    """The kernel wrappers' launch counts: ``zero()`` just before a run of
+    the main path, ``read()`` just after."""
+
+    def __init__(self, ops_attn, ops_dec, ops_q4=None):
+        self.fns = dict(flash_fwd=ops_attn.flash_attention,
+                        decode_attention=ops_dec.decode_attention,
+                        decode_attention_quant=ops_dec.decode_attention_quant)
+        if ops_q4 is not None:
+            self.fns["q4_matmul"] = ops_q4.q4_matmul
+
+    def zero(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        return {name: fn.launches for name, fn in self.fns.items()}
+
+
+def check_launches(label, got, want):
+    print(f"{label}: launches {got}, expected {want}", flush=True)
+    if got != want:
+        fail(f"{label}: launches {got}, expected {want}")
+
+
+def drain(torch, eng):
+    """Step ``eng`` until it has no work. Returns one (wall s, admitted,
+    tokens emitted) per step, each step ending in a synchronize."""
+    steps = []
+    while True:
+        before = eng.stats()
+        t = time.perf_counter()
+        left = eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = eng.stats()
+        steps.append((dt, after.admitted_total - before.admitted_total,
+                      after.tokens_generated - before.tokens_generated))
+        if not left:
+            return steps
+
+
+def decode_rate(steps):
+    """(tokens/s, ms/step) over the steps that admitted nothing."""
+    plain = [(dt, n) for dt, adm, n in steps if adm == 0]
+    wall = sum(dt for dt, _ in plain)
+    return sum(n for _, n in plain) / wall, wall / len(plain) * 1e3
+
+
+@contextlib.contextmanager
+def recorded_suffix_logits(engine_mod):
+    """The first-token logits of every suffix pass the engine runs (a
+    prefix hit's, and each prefill chunk's after the first), in order."""
+    calls = []
+    real = engine_mod._prefill_suffix_logits
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        calls.append(out[0].clone())
+        return out
+
+    engine_mod._prefill_suffix_logits = record
+    try:
+        yield calls
+    finally:
+        engine_mod._prefill_suffix_logits = real
+
+
+def one_shot(torch, engine_mod, params, cfg, eng, prompt):
+    """A from-zero prefill of ``prompt`` at its bucket, as a one-shot
+    admission runs it: (logits (1, V), k, v)."""
+    bucket = next(b for b in eng._buckets if b >= len(prompt))
+    toks = torch.zeros((1, bucket), dtype=torch.long)
+    toks[0, :len(prompt)] = torch.tensor(prompt)
+    with torch.no_grad():
+        return engine_mod._prefill_logits(params, toks.cuda(), len(prompt),
+                                          cfg, eng._freqs)
+
+
+def check_feature_logits(torch, label, got, want, first_tok):
+    """A feature path's first-token logits against the one-shot ones,
+    within LOGITS_REL_L2, and the emitted first token their argmax."""
+    if not (torch.isfinite(got).all() and got.shape == want.shape):
+        fail(f"{label}: first-token logits not finite or of the wrong shape")
+    rel = float((got - want).norm() / want.norm())
+    print(f"{label}: first-token logits vs one-shot: rel_l2={rel} "
+          f"tol_rel_l2={LOGITS_REL_L2} argmax {int(got.argmax())}/"
+          f"{int(want.argmax())} emitted {first_tok}", flush=True)
+    if not rel <= LOGITS_REL_L2:
+        fail(f"{label}: first-token logits differ from one-shot, rel L2 "
+             f"{rel} > {LOGITS_REL_L2}")
+    if int(got.argmax()) != first_tok:
+        fail(f"{label}: emitted {first_tok}, not the argmax of the logits")
+
+
+def check_prefix_rows(torch, label, eng, slot, ref_k, ref_v, p, n):
+    """A prefix hit's slot rows [0, n) against the one-shot prefill's, per
+    row. The prefix rows [0, p) come from A1 on both sides and take the
+    bf16 row tolerance; so do the suffix rows of layer 0, which depend on
+    their tokens and positions only. The suffix rows of layers 1-31 carry
+    the suffix pass's plain attention (P rounded to bf16) where the
+    one-shot rows carry A1's (~16 bits of P), carried through the layers
+    below: they take LOGITS_REL_L2, the first-token check's tolerance for
+    the same difference."""
+    from kubetorch_tpu_torch.ops.tolerance import ROW_RTOL, row_rel_err
+    tol = ROW_RTOL[torch.bfloat16]
+    for name, grid, ref in (("K", eng._cache.k, ref_k), ("V", eng._cache.v, ref_v)):
+        got, want = grid[:, slot, :n], ref[:, 0, :n]
+        prefix = row_rel_err(got[:, :p], want[:, :p])
+        first = row_rel_err(got[0, p:], want[0, p:])
+        deep = [row_rel_err(got[i, p:], want[i, p:]) for i in range(1, got.shape[0])]
+        print(f"{label}: slot rows {name} vs one-shot, max row rel err: prefix "
+              f"rows {prefix} (tol {tol}), suffix rows layer 0 {first} (tol "
+              f"{tol}), layers 1-{got.shape[0] - 1} max {max(deep)} (tol "
+              f"{LOGITS_REL_L2}) per layer {[round(x, 5) for x in deep]}",
+              flush=True)
+        if not (prefix <= tol and first <= tol and max(deep) <= LOGITS_REL_L2):
+            fail(f"{label}: slot rows {name} differ from the one-shot rows")
+
+
+def drive_engine_features(torch, ops_attn, ops_dec, params, cfg, plain, card):
+    """The bf16 engine's request features at Llama-3-8B's full width and
+    depth, on the engine phase's params and grid; ``plain`` (that phase's
+    engine) runs the one-shot comparisons. Returns the launches of the
+    three runs of the main path together."""
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+
+    rng = np.random.default_rng(7)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    launches = Launches(ops_attn, ops_dec)
+    L = cfg.n_layers
+    total = {}
+
+    # -- prefix cache: register, four prefix_id requests, four auto-matched
+    eng = GenerationEngine(params, cfg, **FEATURE_GRID, auto_prefix=True,
+                           device="cuda")
+    # warm-up, not counted: a hit in each suffix bucket (allocator, GEMM
+    # plans), as the engine phase warms every prefill bucket
+    warm = eng.register_prefix(prompt(PREFIX_LEN))
+    for n in (40, 200):
+        eng.submit(prompt(n), max_new_tokens=2, prefix_id=warm)
+    drain(torch, eng)
+    eng.unregister_prefix(warm)
+    steps0, hits0 = eng.stats().decode_steps, eng._prefix_hits
+    prefix = prompt(PREFIX_LEN)
+    suffixes = [prompt(n) for n in PREFIX_SUFFIXES]
+    launches.zero()
+    with recorded_suffix_logits(engine_mod) as suffix_logits:
+        pid = eng.register_prefix(prefix)
+        stored = eng._prefixes[pid]
+        kept = (stored.k.clone(), stored.v.clone())
+        handles = [eng.submit(s, max_new_tokens=MAX_NEW, prefix_id=pid)
+                   for s in suffixes[:4]]
+        handles += [eng.submit(prefix + s, max_new_tokens=MAX_NEW)
+                    for s in suffixes[4:]]
+        eng.step()                     # admits all eight
+        slot_of = {r.rid: i for i, r in enumerate(eng._slot_req) if r}
+        drain(torch, eng)
+    got = launches.read()
+    n_steps = eng.stats().decode_steps - steps0
+    check_launches("engine_features prefix", got,
+                   dict(flash_fwd=L, decode_attention=L * n_steps,
+                        decode_attention_quant=0))
+    total = {k: total.get(k, 0) + v for k, v in got.items()}
+    outs = [h.result(timeout=0) for h in handles]
+    if eng._prefix_hits - hits0 != 8 or any(len(o) != MAX_NEW for o in outs):
+        fail(f"engine_features prefix: {eng._prefix_hits - hits0} prefix hits, "
+             f"tokens {[len(o) for o in outs]}")
+    if not (torch.equal(stored.k, kept[0]) and torch.equal(stored.v, kept[1])):
+        fail("engine_features prefix: the stored prefix rows changed")
+    print("engine_features prefix: 8 prefix hits (4 prefix_id, 4 auto_prefix), "
+          f"{MAX_NEW} tokens each; stored prefix rows bitwise unchanged; A1 "
+          f"once per layer (the registration), none in the 8 suffix passes",
+          flush=True)
+    for i in (0, 4):               # one prefix_id hit, one auto_prefix hit
+        full = prefix + suffixes[i]
+        lk, rk, rv = one_shot(torch, engine_mod, params, cfg, plain, full)
+        check_feature_logits(torch, f"engine_features prefix hit {i} "
+                             f"(suffix {len(suffixes[i])})", suffix_logits[i],
+                             lk, outs[i][0])
+        check_prefix_rows(torch, f"engine_features prefix hit {i}", eng,
+                          slot_of[handles[i].request_id], rk, rv,
+                          PREFIX_LEN, len(full))
+        del lk, rk, rv
+    ttft_hit = [h.time_to_first_token() for h in handles]
+
+    def admit_one(e, toks, **kw):
+        """One step that only admits: a one-token request retires at its
+        first token, so no decode step follows."""
+        e.submit(toks, max_new_tokens=1, **kw)
+        e.step()
+
+    profile_steps(torch, "1 prefix-hit admission (suffix 200, bucket 256)",
+                  lambda: admit_one(eng, suffixes[3], prefix_id=pid), 1)
+    del eng, stored, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = [plain.submit(prefix + s, max_new_tokens=MAX_NEW) for s in suffixes]
+    drain(torch, plain)
+    ttft_one = [h.time_to_first_token() for h in ref]
+    print(f"engine_features prefix: mean_ttft_s prefix hits "
+          f"{sum(ttft_hit) / 8} vs the same 8 prompts one-shot "
+          f"{sum(ttft_one) / 8} (submit to first token, 8 admitted in one "
+          f"step, queueing included); mean admission wall (gap between "
+          f"consecutive first tokens) {float(np.diff(sorted(ttft_hit)).mean())} "
+          f"vs {float(np.diff(sorted(ttft_one)).mean())} s card={card}",
+          flush=True)
+
+    # -- chunked prefill: 7 slots decoding, then an 1800-token prompt
+    eng = GenerationEngine(params, cfg, **FEATURE_GRID, prefill_chunk=CHUNK,
+                           device="cuda")
+    eng.submit(prompt(CHUNK_PROMPT), max_new_tokens=2)     # warm-up
+    drain(torch, eng)
+    steps0 = eng.stats().decode_steps
+    shorts = [prompt(40) for _ in range(7)]
+    long = prompt(CHUNK_PROMPT)
+    launches.zero()
+    with recorded_suffix_logits(engine_mod) as chunk_logits:
+        handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in shorts]
+        eng.step()
+        handles.append(eng.submit(long, max_new_tokens=MAX_NEW))
+        chunk_walls = []
+        while eng._pending or eng._chunking is not None:
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            chunk_walls.append(time.perf_counter() - t)
+        drain(torch, eng)
+    got = launches.read()
+    n_steps = eng.stats().decode_steps - steps0
+    check_launches("engine_features chunked", got,
+                   dict(flash_fwd=L * 8, decode_attention=L * n_steps,
+                        decode_attention_quant=0))
+    total = {k: total.get(k, 0) + v for k, v in got.items()}
+    outs = [h.result(timeout=0) for h in handles]
+    n_chunks = -(-CHUNK_PROMPT // CHUNK)
+    if any(len(o) != MAX_NEW for o in outs) or len(chunk_walls) != n_chunks \
+            or len(chunk_logits) != n_chunks - 1:
+        fail(f"engine_features chunked: tokens {[len(o) for o in outs]}, "
+             f"{len(chunk_walls)} chunk steps, {len(chunk_logits)} suffix "
+             f"passes")
+    lk, _, _ = one_shot(torch, engine_mod, params, cfg, plain, long)
+    check_feature_logits(torch, "engine_features chunked "
+                         f"({CHUNK_PROMPT} tokens, chunks of {CHUNK})",
+                         chunk_logits[-1], lk, outs[-1][0])
+    eng.submit(long, max_new_tokens=1)
+    profile_steps(torch, f"{n_chunks} chunk steps of {CHUNK} ({CHUNK_PROMPT}-token "
+                  f"prompt, no decoding slot)", eng.step, n_chunks)
+    profile_steps(torch, f"1 one-shot admission ({CHUNK_PROMPT}-token prompt, "
+                  f"bucket 2048)", lambda: admit_one(plain, long), 1)
+    del eng, lk
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = [plain.submit(p, max_new_tokens=MAX_NEW) for p in shorts]
+    plain.step()
+    ref.append(plain.submit(long, max_new_tokens=MAX_NEW))
+    t = time.perf_counter()
+    plain.step()
+    torch.cuda.synchronize()
+    stall = time.perf_counter() - t
+    drain(torch, plain)
+    print(f"engine_features chunked: {len(outs)} requests, {MAX_NEW} tokens "
+          f"each; A1 for the 7 short prefills and the first chunk only; wall "
+          f"of each step that carried a chunk (7 slots decoding) "
+          f"{[round(w * 1e3, 3) for w in chunk_walls]} ms vs the step that "
+          f"admits the same prompt one-shot {stall * 1e3} ms card={card}",
+          flush=True)
+
+    # -- penalties and logit_bias beside 6 plain requests, against the same
+    # 6 requests alone (the plain engine has no penalty or bias grid yet)
+    nbrs = [prompt(40) for _ in range(6)]
+    biased, penalized = prompt(40), prompt(40)
+    steps0 = plain.stats().decode_steps
+    launches.zero()
+    alone = [plain.submit(p, max_new_tokens=MAX_NEW) for p in nbrs]
+    rate_alone = decode_rate(drain(torch, plain))
+    if plain._counts is not None or plain._bias is not None:
+        fail("engine_features penalties: grids allocated without a request")
+    beside = [plain.submit(p, max_new_tokens=MAX_NEW) for p in nbrs]
+    hb = plain.submit(biased, max_new_tokens=MAX_NEW,
+                      logit_bias={BIAS_TOKEN: 100.0})
+    hp = plain.submit(penalized, max_new_tokens=MAX_NEW,
+                      presence_penalty=HUGE_PRESENCE)
+    rate_beside = decode_rate(drain(torch, plain))
+    got = launches.read()
+    n_steps = plain.stats().decode_steps - steps0
+    check_launches("engine_features penalties", got,
+                   dict(flash_fwd=L * 14, decode_attention=L * n_steps,
+                        decode_attention_quant=0))
+    total = {k: total.get(k, 0) + v for k, v in got.items()}
+    forced, rep = hb.result(timeout=0), hp.result(timeout=0)
+    same = all(a.result(timeout=0) == b.result(timeout=0)
+               and a.logprobs == b.logprobs for a, b in zip(alone, beside))
+    print(f"engine_features penalties: logit_bias {{{BIAS_TOKEN}: 100}} "
+          f"emitted it {forced.count(BIAS_TOKEN)}/{len(forced)}; presence "
+          f"penalty {HUGE_PRESENCE}: {len(set(rep))} distinct of {len(rep)}, "
+          f"{len(set(rep) & set(penalized))} from the prompt; neighbours' "
+          f"tokens and logprobs bit-identical to the run without them: {same}",
+          flush=True)
+    if forced != [BIAS_TOKEN] * MAX_NEW:
+        fail(f"engine_features penalties: logit_bias gave {forced}")
+    if len(rep) != MAX_NEW or len(set(rep)) != len(rep) or set(rep) & set(penalized):
+        fail(f"engine_features penalties: presence penalty repeated: {rep}")
+    if not same:
+        fail("engine_features penalties: a neighbour's tokens or logprobs "
+             "changed beside penalized and biased requests")
+    print(f"engine_features penalties: decode_tok_per_s with penalties and "
+          f"bias active {rate_beside[0]} ({rate_beside[1]} ms/step, 8 slots) "
+          f"vs the 6 neighbours alone {rate_alone[0]} ({rate_alone[1]} "
+          f"ms/step, 6 slots) card={card}", flush=True)
+    return total
+
+
+def drive_engine_q4_features(torch, ops_attn, ops_dec, ops_q4, params, cfg,
+                             prompt, card):
+    """The int4 + int8-KV engine's prefix cache and chunked prefill: a
+    registered 1000-token prefix with one prefix hit, and an 1800-token
+    prompt in chunks of 512, with exact launch counts and first-token
+    logits against one-shot prefills. Returns the launches."""
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+
+    eng = GenerationEngine(params, cfg, **FEATURE_GRID, quantize_kv=True,
+                           prefill_chunk=CHUNK, device="cuda")
+    prefix, suffix, long = prompt(PREFIX_LEN), prompt(100), prompt(CHUNK_PROMPT)
+    launches = Launches(ops_attn, ops_dec, ops_q4)
+    launches.zero()
+    with recorded_suffix_logits(engine_mod) as suffix_logits:
+        pid = eng.register_prefix(prefix)
+        hp = eng.submit(suffix, max_new_tokens=MAX_NEW, prefix_id=pid)
+        hc = eng.submit(long, max_new_tokens=MAX_NEW)
+        drain(torch, eng)
+    got = launches.read()
+    steps = eng.stats().decode_steps
+    L = cfg.n_layers
+    head = params["lm_head"]
+    head_q4 = int(ops_q4.q4_supported((1, cfg.dim), head["__kt_q4__"].shape,
+                                      head["scale"].shape))
+    n_chunks = -(-CHUNK_PROMPT // CHUNK)
+    passes = 2 + n_chunks          # the registration, the suffix, the chunks
+    check_launches("engine_q4_features", got,
+                   dict(flash_fwd=2 * L, decode_attention=0,
+                        decode_attention_quant=L * steps,
+                        q4_matmul=(7 * L + head_q4) * (passes + steps)))
+    outs = [hp.result(timeout=0), hc.result(timeout=0)]
+    if [len(o) for o in outs] != [MAX_NEW] * 2 or eng._prefix_hits != 1 \
+            or len(suffix_logits) != 1 + (n_chunks - 1):
+        fail(f"engine_q4_features: tokens {[len(o) for o in outs]}, "
+             f"{eng._prefix_hits} prefix hits, {len(suffix_logits)} passes")
+    print(f"engine_q4_features: a prefix hit and a chunked admission "
+          f"({n_chunks} chunks), {MAX_NEW} tokens each, over {steps} decode "
+          f"steps: A1 = {L} x 2 from-zero prefills (registration, first chunk), "
+          f"B3 = {7 * L + head_q4} x ({passes} prefill passes + steps), B2 = "
+          f"{L} x steps card={card}", flush=True)
+    for label, logits, full, tok in (
+            ("prefix hit", suffix_logits[0], prefix + suffix, outs[0][0]),
+            ("chunked", suffix_logits[-1], long, outs[1][0])):
+        lk, _, _ = one_shot(torch, engine_mod, params, cfg, eng, full)
+        check_feature_logits(torch, f"engine_q4_features {label}", logits,
+                             lk, tok)
+        del lk
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
 
 
 def serve_requests(torch, eng, cfg, prompts):
@@ -852,15 +1257,10 @@ def drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card):
         h.result(timeout=0)
 
     prompts = [prompt(n) for n in ENGINE_PROMPT_LENS]
-    ops_attn.flash_attention.launches = 0
-    ops_dec.decode_attention.launches = 0
-    ops_dec.decode_attention_quant.launches = 0
-    ops_q4.q4_matmul.launches = 0
+    launches = Launches(ops_attn, ops_dec, ops_q4)
+    launches.zero()
     handles, tok_s, steps = serve_requests(torch, eng, cfg, prompts)
-    counts = dict(flash_fwd=ops_attn.flash_attention.launches,
-                  q4_matmul=ops_q4.q4_matmul.launches,
-                  decode_attention_quant=ops_dec.decode_attention_quant.launches,
-                  decode_attention=ops_dec.decode_attention.launches)
+    counts = launches.read()
     outs = check_outputs("engine_q4", handles, cfg, prompts)
     L, n_req = cfg.n_layers, len(prompts)
     # the head takes B3 only where it tiles; Llama-3-8B's 128256 columns do
@@ -893,8 +1293,12 @@ def drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card):
     check_decode_step_quant(torch, engine_mod, ops_dec, eng, params, cfg,
                             prompts)
     profile_decode(torch, eng, prompts)
-    return counts, dict(decode_tok_per_s=tok_s, mean_ttft_s=sum(ttft) / len(ttft),
-                        weight_gb=weight_gb, cache_gb=cache_gb)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    features = drive_engine_q4_features(torch, ops_attn, ops_dec, ops_q4,
+                                        params, cfg, prompt, card)
+    return counts, features
 
 
 def check_decode_step_quant(torch, engine_mod, ops_dec, eng, params, cfg,
@@ -1164,10 +1568,10 @@ def main() -> None:
     dec_q = check_decode(torch, F, ops_dec, quant=True)
     q4 = check_q4(torch, ops_q4)
     train_k = check_train_kernels(torch, F, ops_attn)
-    flash_n, decode_n = drive_engine(torch, ops_attn, ops_dec, card)
+    flash_n, decode_n, feat_n = drive_engine(torch, ops_attn, ops_dec, card)
     gc.collect()
     torch.cuda.empty_cache()
-    quant_n, _ = drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card)
+    quant_n, qfeat_n = drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card)
     gc.collect()
     torch.cuda.empty_cache()
     train_n, train = drive_training(torch, ops_attn, card)
@@ -1179,11 +1583,14 @@ def main() -> None:
              launches=train_n[0], path="training (forward with LSE, and "
              "again under remat)", **train_k["fwd"],
              serving=dict(launches=flash_n, **flash),
-             serving_quant=dict(launches=quant_n["flash_fwd"])),
+             serving_quant=dict(launches=quant_n["flash_fwd"]),
+             engine_features=dict(launches=feat_n["flash_fwd"]),
+             engine_q4_features=dict(launches=qfeat_n["flash_fwd"])),
         dict(name="decode_attention", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
-             launches=decode_n, path="serving", **dec),
+             launches=decode_n, path="serving", **dec,
+             engine_features=dict(launches=feat_n["decode_attention"])),
         dict(name="flash_bwd_dq", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:140",
@@ -1196,12 +1603,15 @@ def main() -> None:
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
              launches=quant_n["decode_attention_quant"],
-             path="quantized serving (int8 KV cache)", **dec_q),
+             path="quantized serving (int8 KV cache)", **dec_q,
+             engine_q4_features=dict(
+                 launches=qfeat_n["decode_attention_quant"])),
         dict(name="q4_matmul", route="cuda",
              source="kubetorch_tpu_torch/csrc/quant_matmul.cu",
              replaces="kubetorch_tpu/ops/quant_matmul.py:31",
              launches=quant_n["q4_matmul"],
-             path="quantized serving (int4 weights)", **q4),
+             path="quantized serving (int4 weights)", **q4,
+             engine_q4_features=dict(launches=qfeat_n["q4_matmul"])),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

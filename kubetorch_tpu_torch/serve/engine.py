@@ -22,6 +22,18 @@
 - **Bucketed prefill.** Prompts are right-padded to a bucket length and
   run through the flash attention kernel (``ops.attention``) when the
   bucket is a multiple of 128; the rows are then copied into the slot.
+- **Prefix caching.** ``register_prefix`` prefills a shared prefix once and
+  keeps its K/V rows, padded to a bucket, in the model dtype. A request
+  with its ``prefix_id`` (or, under ``auto_prefix``, the longest registered
+  prefix its prompt starts with) prefills only its suffix, at absolute
+  positions behind the prefix, over a new buffer that copies the prefix's
+  rows: the stored rows are never written. A suffix attends to the cache
+  with the plain masked einsum, as in the JAX engine.
+- **Chunked prefill.** With ``prefill_chunk=C`` a prompt longer than C
+  admits over several engine steps, one C-token chunk per step between
+  decode blocks, through the same suffix pass over an accumulator of
+  ``max_len`` rows (``max_len + C`` while a chunk runs). The first chunk
+  of a prompt without a prefix is a from-zero prefill.
 - **Decode blocks.** ``decode_block`` steps run per engine step. A slot
   that retires mid-block keeps computing garbage for the rest of the block
   and the host drops its tokens. Its positions may pass ``S_max``: the JAX
@@ -32,24 +44,32 @@
 - **Sampling.** Each sampled request owns a ``torch.Generator`` on the
   device, seeded from its ``seed`` (or, unseeded, from the engine's seed
   sequence), drawn once per token it samples: a seeded request decodes the
-  same tokens whatever slot it lands in and whoever its neighbours are.
+  same tokens whatever slot it lands in and whoever its neighbours are. A
+  prefill chunk that samples nothing draws nothing.
+- **Penalties and logit_bias.** Frequency and presence penalties (from a
+  ``(SLOTS, V)`` grid of seen-token counts, prompt included) and an
+  additive ``logit_bias`` row per slot steer the choice before sampling;
+  reported logprobs stay the raw model's. The grids are allocated on the
+  first request that asks for them, the counts grow on the device inside
+  the step, and stale rows of past occupants are neutralized by a zero
+  penalty or a zero bias mask, so an unpenalized neighbour's tokens are
+  bit-identical to a run without penalized ones.
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
-ignored: ``auto_prefix``, ``prefill_chunk``, ``aot_cache``, a device mesh
-(so neither the sharded int8 decode), LoRA adapters, cached prefixes,
-frequency and presence penalties, and ``logit_bias``; MoE layers raise in
-the model code.
+ignored: ``aot_cache``, a device mesh (so neither the sharded int8
+decode) and LoRA adapters; MoE layers raise in the model code.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import queue
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -131,12 +151,15 @@ def _decode_layer_quant(cfg, x, lw, kq, ks, vq, vs, pos, pos_idx,
 
 
 def _sample_slots(logits, temps: np.ndarray, top_k: Optional[int],
-                  top_ps: np.ndarray, gens: Sequence[Optional[torch.Generator]]):
+                  top_ps: np.ndarray, gens: Sequence[Optional[torch.Generator]],
+                  lp_logits=None):
     """Per-slot sampling over (B, V) fp32 logits. ``temps`` (B,): 0 means
     greedy for that row; ``top_ps`` (B,): nucleus mass, 1.0 disables;
     ``gens``: each sampled row draws from its own generator, so its token
-    depends on nothing but its own logits and stream. Returns (tokens (B,)
-    int64, raw-model logprob of each token (B,) fp32)."""
+    depends on nothing but its own logits and stream. ``lp_logits`` lets a
+    caller that steered ``logits`` (penalties, bias) pass the raw ones for
+    the reported score. Returns (tokens (B,) int64, raw-model logprob of
+    each token (B,) fp32)."""
     tok = torch.argmax(logits, dim=-1)
     rows = [i for i in range(logits.shape[0]) if temps[i] > 0]
     if rows:
@@ -149,7 +172,8 @@ def _sample_slots(logits, temps: np.ndarray, top_k: Optional[int],
         probs = torch.softmax(scaled, dim=-1)
         for j, i in enumerate(rows):
             tok[i] = torch.multinomial(probs[j], 1, generator=gens[i])[0]
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = torch.log_softmax(logits if lp_logits is None else lp_logits,
+                             dim=-1)
     return tok, logp.gather(-1, tok[:, None])[:, 0]
 
 
@@ -183,13 +207,31 @@ def _decode_step_impl(params, cache, pos, toks, cfg, freqs_table):
 
 
 def _decode_block(params, cache, pos, toks, cfg, freqs_table,
-                  n_steps: int, temps, top_k, top_ps, gens):
+                  n_steps: int, temps, top_k, top_ps, gens, counts=None,
+                  fpen=None, ppen=None, bias=None, bmask=None):
     """Advance every slot ``n_steps`` tokens. pos (B,) int32 and toks (B,)
-    int64 on the device. Returns (tokens (K, B), logprobs (K, B))."""
+    int64 on the device. ``counts`` (B, V) int32 with ``fpen``/``ppen``
+    (B,) fp32: OpenAI repetition penalties, ``fpen·counts + ppen·(counts >
+    0)`` subtracted before sampling; ``bias`` (B, V) fp32 with ``bmask``
+    (B,): each slot's logit_bias, added where its mask is 1. A zero
+    penalty or mask multiplies a stale row by 0, so unpenalized slots see
+    their logits unchanged. After each inner step ``counts`` gains the
+    sampled tokens, in place on the device. Returns (tokens (K, B),
+    logprobs (K, B))."""
     toks_k, lps_k = [], []
+    slot_idx = torch.arange(toks.shape[0], device=toks.device)
     for _ in range(n_steps):
-        logits = _decode_step_impl(params, cache, pos, toks, cfg, freqs_table)
-        toks, lps = _sample_slots(logits, temps, top_k, top_ps, gens)
+        raw = _decode_step_impl(params, cache, pos, toks, cfg, freqs_table)
+        logits = raw
+        if counts is not None:
+            logits = logits - (fpen[:, None] * counts.float()
+                               + ppen[:, None] * (counts > 0))
+        if bias is not None:
+            logits = logits + bias * bmask[:, None]
+        toks, lps = _sample_slots(logits, temps, top_k, top_ps, gens,
+                                  lp_logits=raw)
+        if counts is not None:
+            counts[slot_idx, toks] += 1
         pos = pos + 1
         toks_k.append(toks)
         lps_k.append(lps)
@@ -213,13 +255,67 @@ def _prefill_logits(params, tokens, true_len: int, cfg, freqs_table):
     return lm_head_dot(x[:, true_len - 1], params, cfg.dtype), cache.k, cache.v
 
 
-def _prefill(params, tokens, true_len: int, cfg, freqs_table, temps, top_k,
-             top_ps, gens):
-    """:func:`_prefill_logits`, then the first token sampled. Returns
-    (first (1,), k, v, logprob (1,))."""
+def _zero_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A new tensor: ``x`` (L, B, S, ...) followed by ``n`` zero rows along
+    S. Never a view of ``x``, so writing into it leaves ``x`` as it was."""
+    pad = x.new_zeros(x.shape[:2] + (n,) + x.shape[3:])
+    return torch.cat([x, pad], dim=2)
+
+
+def _prefill_suffix_logits(params, tokens, true_len: int, prefix_k,
+                           prefix_v, prefix_len: int, cfg, freqs_table):
+    """Suffix prompt pass behind cached rows: tokens (1, T_bucket)
+    right-padded run at absolute positions ``prefix_len + i`` and attend
+    the first ``prefix_len`` rows of ``prefix_k``/``prefix_v`` (L, 1,
+    P_bucket, NKV, Hd) plus themselves, with the plain masked attention.
+    The pass runs over a new buffer of P_bucket + T_bucket rows (the
+    prefix's, then zeros); suffix rows are written from ``prefix_len`` on,
+    over the prefix's padding, and the causal mask never admits a row not
+    yet written. ``freqs_table`` must hold P_bucket + T_bucket rows.
+    Returns (logits (1, V) at the suffix's real last token, k, v) with k/v
+    (L, 1, P_bucket + T_bucket, NKV, Hd), ready to splice into a slot.
+    Exact for dense models: the same math as a from-zero prefill of prefix
+    and suffix together."""
+    t = tokens.shape[1]
+    ck, cv = _zero_rows(prefix_k, t), _zero_rows(prefix_v, t)
+    x = params["embed"][tokens].to(cfg.dtype)
+    for i in range(cfg.n_layers):
+        x = _layer_step(cfg, x, layer_weights(params, i), ck[i], cv[i],
+                        prefix_len, freqs_table)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head_dot(x[:, true_len - 1], params, cfg.dtype), ck, cv
+
+
+def _prefill(params, tokens, true_len: int, cfg, freqs_table,
+             samp: "_Sampling"):
+    """:func:`_prefill_logits`, then the first token sampled
+    (:func:`_sample_first`). Returns (first (1,), k, v, logprob (1,))."""
     logits, k, v = _prefill_logits(params, tokens, true_len, cfg, freqs_table)
-    first, lps = _sample_slots(logits, temps, top_k, top_ps, gens)
-    return first, k, v, lps
+    first, lp = _sample_first(logits, samp)
+    return first, k, v, lp
+
+
+def _prefill_suffix(params, tokens, true_len: int, prefix_k, prefix_v,
+                    prefix_len: int, cfg, freqs_table, samp: "_Sampling"):
+    """:func:`_prefill_suffix_logits`, then the first token sampled
+    (:func:`_sample_first`). Returns (first (1,), k, v, logprob (1,)), k/v
+    over P_bucket + T_bucket rows."""
+    logits, k, v = _prefill_suffix_logits(params, tokens, true_len, prefix_k,
+                                          prefix_v, prefix_len, cfg,
+                                          freqs_table)
+    first, lp = _sample_first(logits, samp)
+    return first, k, v, lp
+
+
+def _sample_first(logits, samp: "_Sampling"):
+    """The first token of a request from its prefill logits (1, V):
+    ``samp.pen_row`` (penalties of the prompt, less the bias) is
+    subtracted before sampling, the reported logprob stays raw. Returns
+    (first (1,), logprob (1,))."""
+    steered = logits if samp.pen_row is None else logits - samp.pen_row[None]
+    return _sample_slots(steered, np.array([samp.temp], np.float32), samp.top_k,
+                         np.array([samp.top_p], np.float32), [samp.gen],
+                         lp_logits=logits)
 
 
 def _splice_slot(cache, slot: int, k_new, v_new) -> None:
@@ -264,8 +360,13 @@ class _Request:
     max_new_tokens: int
     temperature: Optional[float] = None      # None → engine default
     top_p: Optional[float] = None            # None → engine default
+    frequency_penalty: float = 0.0           # OpenAI-style repetition ctl
+    presence_penalty: float = 0.0
+    logit_bias: Optional[Dict[int, float]] = None  # token id → additive bias
     seed: Optional[int] = None               # reproducible sampling stream
     stop: tuple = ()                         # stop token-id sequences
+    prefix_id: Optional[int] = None          # cached shared-prefix K/V
+    full_prompt: Optional[List[int]] = None  # pre-strip prompt (auto match)
     cancelled: bool = False                  # reaped at the next step
     error: Optional[BaseException] = None    # admission failure, surfaced
     out: "queue.Queue[Optional[int]]" = field(default_factory=queue.Queue)
@@ -274,6 +375,46 @@ class _Request:
     generated: int = 0
     submitted_at: float = field(default_factory=time.monotonic)
     first_token_at: Optional[float] = None
+
+
+class _Prefix(NamedTuple):
+    """A registered prefix: K/V rows (L, 1, P_store, NKV, Hd) in the model
+    dtype, padded to a bucket (or trimmed to the exact length where no
+    bucket leaves room under max_len), its true length and its tokens."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+    tokens: tuple
+
+
+@dataclass
+class _Chunking:
+    """The one chunked admission in flight: its reserved slot, the K/V
+    accumulator (L, 1, max_len, NKV, Hd), the prompt tokens consumed so far,
+    the next absolute position, and the cached prefix's tokens if any."""
+    req: "_Request"
+    slot: int
+    k: torch.Tensor
+    v: torch.Tensor
+    consumed: int
+    frontier: int
+    prefix_tokens: Optional[tuple]
+
+
+@dataclass
+class _Sampling:
+    """A request's sampling state at admission: temperature and top-p, the
+    engine's top-k, its generator (None when greedy), ``pen_row`` (V,)
+    subtracted from the first token's logits (the prompt's penalties less
+    the bias; None without either), the seen-token counts that seed the
+    slot's row of the counts grid, and its bias row."""
+    temp: float
+    top_p: float
+    top_k: Optional[int]
+    gen: Optional[torch.Generator]
+    pen_row: Optional[torch.Tensor]
+    counts_row: Optional[np.ndarray]
+    bias_row: Optional[np.ndarray]
 
 
 class RequestHandle:
@@ -374,7 +515,9 @@ class GenerationEngine:
     or quantized (``models.quant``), on ``device`` — ``cuda`` unless the
     caller names another. ``eos_id`` retires a slot early; ``max_len``
     caps prompt + completion; ``quantize_kv=True`` keeps the KV grid in
-    int8 (``serve.kv_quant``).
+    int8 (``serve.kv_quant``); ``auto_prefix=True`` reuses registered
+    prefixes without an id; ``prefill_chunk=C`` admits prompts longer than
+    C one chunk per step.
     """
 
     def __init__(self, params: Dict[str, Any], cfg, *, slots: int = 8,
@@ -386,9 +529,7 @@ class GenerationEngine:
                  decode_block: int = 1, auto_prefix: bool = False,
                  prefill_chunk: Optional[int] = None, aot_cache=None,
                  mesh=None, device=None):
-        for flag, what in ((auto_prefix, "auto_prefix"),
-                           (prefill_chunk is not None, "prefill_chunk"),
-                           (aot_cache is not None, "aot_cache"),
+        for flag, what in ((aot_cache is not None, "aot_cache"),
                            (mesh is not None, "a device mesh")):
             if flag:
                 raise _not_ported(what)
@@ -411,6 +552,14 @@ class GenerationEngine:
         if decode_block < 1:
             raise ValueError(f"decode_block must be >= 1, got {decode_block}")
         self.decode_block = int(decode_block)
+        # chunked prefill: a prompt longer than this admits one chunk per
+        # engine step (module docstring); None = one-shot admission
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.prefill_chunk = (None if prefill_chunk is None
+                              else int(prefill_chunk))
+        self._chunking: Optional[_Chunking] = None
         self._buckets = sorted({min(b, self.max_len)
                                 for b in prefill_buckets} | {self.max_len})
         # the int8 grid (serve.kv_quant): rows quantize at the splice and
@@ -418,15 +567,34 @@ class GenerationEngine:
         make_cache = init_quant_cache if quantize_kv else init_cache
         self._cache = make_cache(cfg, self.slots, self.max_len,
                                  device=self.device)
-        self._freqs = rope_freqs(cfg, self.max_len, device=self.device)
+        # RoPE rows for the widest buffer a pass runs over: decode reads
+        # rows < max_len, a suffix pass ends at max_len, a chunk's padding
+        # rows at max_len + prefill_chunk (the table's rows do not depend
+        # on its length)
+        self._freqs = rope_freqs(cfg, self.max_len + (self.prefill_chunk or 0),
+                                 device=self.device)
         self._pos = np.zeros(self.slots, np.int32)     # next write position
         self._tok = np.zeros(self.slots, np.int64)     # next decode input
         self._temps = np.zeros(self.slots, np.float32)
         self._top_ps = np.ones(self.slots, np.float32)
+        self._fpen = np.zeros(self.slots, np.float32)
+        self._ppen = np.zeros(self.slots, np.float32)
+        # (SLOTS, V) int32 seen-token counts and (SLOTS, V) fp32 bias rows,
+        # each allocated on the first request that asks for it and kept:
+        # engines that never see a penalty or a bias pay for neither
+        self._counts: Optional[torch.Tensor] = None
+        self._bias: Optional[torch.Tensor] = None
+        self._bmask = np.zeros(self.slots, np.float32)
         self._gens: List[Optional[torch.Generator]] = [None] * self.slots
         self._slot_req: List[Optional[_Request]] = [None] * self.slots
         self._pending: "deque[_Request]" = deque()
         self._admitting: Optional[_Request] = None   # cancel() window
+        self._prefixes: Dict[int, _Prefix] = {}
+        self._prefix_ids = itertools.count()
+        # auto_prefix: submit() reuses the longest registered prefix the
+        # prompt starts with, no prefix_id needed
+        self.auto_prefix = bool(auto_prefix)
+        self._prefix_hits = 0
         # seeds for requests that bring none (drawn under _lock)
         self._seed_rng = np.random.default_rng(seed)
         self._rid = itertools.count()
@@ -447,10 +615,14 @@ class GenerationEngine:
     def register_adapter(self, adapters, lora_cfg) -> int:
         raise _not_ported("LoRA adapter serving")
 
-    def register_prefix(self, tokens, adapter_id=None) -> int:
-        raise _not_ported("prefix caching")
-
     # -- submission ---------------------------------------------------------
+
+    def _check_vocab(self, tokens: List[int]) -> None:
+        # an out-of-range id would be a device-side assert in the embedding
+        bad = [t for t in tokens if not 0 <= t < self.cfg.vocab_size]
+        if bad:
+            raise ValueError(f"token ids out of vocab range "
+                             f"[0, {self.cfg.vocab_size}): {bad[:8]}")
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 64,
                temperature: Optional[float] = None,
@@ -463,72 +635,172 @@ class GenerationEngine:
                logit_bias: Optional[Dict[int, float]] = None,
                seed: Optional[int] = None) -> RequestHandle:
         """Queue one request. ``temperature``/``top_p`` override the engine
-        defaults for this request (0 = greedy). ``stop`` is one token-id
-        sequence or a list of them: the request retires once its generated
-        tokens end with one (the matching tokens are emitted). ``seed``
-        fixes the request's sampling stream."""
-        if prefix_id is not None:
-            raise _not_ported("prefix caching (prefix_id)")
+        defaults for this request (0 = greedy). ``prefix_id`` (from
+        :meth:`register_prefix`) reuses a cached prefix's K/V: only
+        ``prompt`` is prefilled, and generation continues as if prefix and
+        prompt had been submitted together; with ``auto_prefix=True`` and no
+        ``prefix_id``, pass the full prompt and the longest registered
+        prefix it starts with is reused. ``frequency_penalty`` and
+        ``presence_penalty`` subtract ``f·count + p·(count > 0)`` of every
+        token seen (prompt and prefix included) before each sample;
+        ``logit_bias`` adds a bias per token id. Reported logprobs stay the
+        raw model's. ``stop`` is one token-id sequence or a list of them:
+        the request retires once its generated tokens end with one (the
+        matching tokens are emitted). ``seed`` fixes the request's sampling
+        stream."""
         if adapter_id is not None:
             raise _not_ported("LoRA adapter serving (adapter_id)")
-        if frequency_penalty or presence_penalty:
-            raise _not_ported("frequency/presence penalties")
-        if logit_bias:
-            raise _not_ported("logit_bias")
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1 (the prefill "
                              "always samples the first token)")
-        if len(prompt) + max_new_tokens > self.max_len:
+        self._check_vocab(prompt)
+        full_prompt = None
+        if prefix_id is None and self.auto_prefix:
+            prefix_id, stripped = self._match_prefix(prompt,
+                                                     int(max_new_tokens))
+            if prefix_id is not None:
+                full_prompt, prompt = prompt, stripped
+        prefix_bucket = 0
+        if prefix_id is not None:
+            # fetch once: an unregister racing this check must not blow up
+            # a later read
+            pref = self._prefixes.get(prefix_id)
+            if pref is None:
+                if full_prompt is not None:
+                    # matched here (auto_prefix) and evicted since: the
+                    # caller never asked for it, so serve the full prompt
+                    prompt, full_prompt, prefix_id = full_prompt, None, None
+                else:
+                    raise KeyError(f"unknown prefix_id {prefix_id}")
+            else:
+                # the spliced rows span the prefix's bucket, so that is
+                # what must fit under max_len
+                prefix_bucket = pref.k.shape[2]
+        if prefix_bucket + len(prompt) + max_new_tokens > self.max_len:
             raise ValueError(
-                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
-                f"exceeds the engine's max_len ({self.max_len})")
-        # an out-of-range id would be a device-side assert in the embedding
-        bad = [t for t in prompt if not 0 <= t < self.cfg.vocab_size]
-        if bad:
-            raise ValueError(f"token ids out of vocab range "
-                             f"[0, {self.cfg.vocab_size}): {bad[:8]}")
+                f"prefix bucket ({prefix_bucket}) + prompt ({len(prompt)}) "
+                f"+ max_new_tokens ({max_new_tokens}) exceeds the engine's "
+                f"max_len ({self.max_len})")
         if top_p is not None and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if logit_bias:
+            logit_bias = {int(t): float(b) for t, b in logit_bias.items()}
+            bad = [t for t in logit_bias
+                   if not 0 <= t < self.cfg.vocab_size]
+            if bad:
+                raise ValueError(f"logit_bias token ids out of vocab "
+                                 f"range [0, {self.cfg.vocab_size}): {bad}")
+            nonfin = [t for t, b in logit_bias.items()
+                      if not math.isfinite(b)]
+            if nonfin:
+                # a single NaN/inf bias poisons the whole logits row
+                raise ValueError(
+                    f"logit_bias values must be finite; got "
+                    f"{ {t: logit_bias[t] for t in nonfin} }")
         req = _Request(next(self._rid), prompt, int(max_new_tokens),
                        temperature=temperature, top_p=top_p,
-                       stop=_normalize_stop(stop),
+                       frequency_penalty=float(frequency_penalty),
+                       presence_penalty=float(presence_penalty),
+                       logit_bias=logit_bias or None,
+                       stop=_normalize_stop(stop), prefix_id=prefix_id,
+                       full_prompt=full_prompt,
                        seed=None if seed is None else int(seed))
         with self._lock:
             self._pending.append(req)
         self._work.set()
         return RequestHandle(req, engine=self)
 
+    # -- prefix cache -------------------------------------------------------
+
+    def register_prefix(self, tokens: Sequence[int],
+                        adapter_id: Optional[int] = None) -> int:
+        """Prefill a shared prefix (system prompt, few-shot header) once and
+        cache its K/V; later :meth:`submit` calls with the returned id skip
+        recomputing it. Exact for dense models."""
+        if adapter_id is not None:
+            raise _not_ported("LoRA adapter serving (adapter_id)")
+        tokens = [int(t) for t in tokens]
+        if not tokens:
+            raise ValueError("empty prefix")
+        if len(tokens) >= self.max_len:
+            raise ValueError(f"prefix ({len(tokens)}) must leave room under "
+                             f"max_len ({self.max_len})")
+        self._check_vocab(tokens)
+        t = len(tokens)
+        bucket = next(b for b in self._buckets if b >= t)
+        with torch.no_grad():
+            _, k, v = _prefill_logits(self.params, self._padded(tokens, bucket),
+                                      t, self.cfg, self._freqs)
+        # keep the bucketed rows (the suffix pass takes the true length as
+        # an argument); where the bucket leaves no room for a one-token
+        # suffix and one generated token under max_len, trim to the exact
+        # length instead
+        store = next((b for b in self._buckets
+                      if b >= t and b + 2 <= self.max_len), t)
+        if store != bucket:
+            k, v = k[:, :, :store].contiguous(), v[:, :, :store].contiguous()
+        pid = next(self._prefix_ids)
+        self._prefixes[pid] = _Prefix(k, v, t, tuple(tokens))
+        return pid
+
+    def _match_prefix(self, prompt: List[int], max_new_tokens: int):
+        """Longest registered prefix this prompt starts with (auto_prefix):
+        (prefix_id, suffix) or (None, prompt). A candidate must leave a
+        non-empty suffix and fit its bucket, the suffix and the budget
+        under max_len."""
+        with self._lock:
+            items = list(self._prefixes.items())
+        best = None
+        for pid, pref in items:
+            n = len(pref.tokens)
+            if (n < len(prompt) and (best is None or n > best[1])
+                    and pref.k.shape[2] + (len(prompt) - n)
+                    + max_new_tokens <= self.max_len
+                    and list(pref.tokens) == prompt[:n]):
+                best = (pid, n)
+        if best is None:
+            return None, prompt
+        return best[0], prompt[best[1]:]
+
+    def unregister_prefix(self, prefix_id: int) -> bool:
+        """Free a cached prefix's K/V. The caller owns prefix lifetime; each
+        live prefix pins 2·L·P·NKV·Hd values on the device. Requests
+        already queued against the id fail with a KeyError through their
+        handle."""
+        return self._prefixes.pop(prefix_id, None) is not None
+
     def cancel(self, request_id: int) -> bool:
         """Abandon a request: a queued one never admits, an active one
         frees its slot at the next step boundary, one caught mid-admission
-        is reaped right after its admission. False if the id is unknown,
-        finished or already cancelled."""
+        (or mid-chunking) is reaped right after. False if the id is
+        unknown, finished or already cancelled."""
         with self._lock:
             for i, req in enumerate(self._pending):
                 if req.rid == request_id:
                     del self._pending[i]
                     req.out.put(None)
                     return True
-        for req in self._slot_req:
+        # read each once: the stepping thread may clear them meanwhile
+        adm, ck = self._admitting, self._chunking
+        in_flight = [r for r in self._slot_req if r is not None]
+        in_flight += [adm, ck.req if ck is not None else None]
+        for req in in_flight:
             if req is not None and req.rid == request_id:
                 if req.cancelled:
                     return False
                 req.cancelled = True
                 self._work.set()
                 return True
-        adm = self._admitting
-        if adm is not None and adm.rid == request_id and not adm.cancelled:
-            adm.cancelled = True
-            self._work.set()
-            return True
         return False
 
     def _retire_slot(self, slot: int) -> None:
         """The one slot-retirement path (finish, eos, stop, cancel): end the
-        handle's stream, free the slot, clear its state."""
+        handle's stream, free the slot, clear its state. The slot's rows of
+        the counts and bias grids stay: a zero penalty and a zero mask
+        neutralize them."""
         req = self._slot_req[slot]
         if req is None:
             return
@@ -539,6 +811,9 @@ class GenerationEngine:
         self._tok[slot] = 0
         self._temps[slot] = 0.0
         self._top_ps[slot] = 1.0
+        self._fpen[slot] = 0.0
+        self._ppen[slot] = 0.0
+        self._bmask[slot] = 0.0
         self._finished += 1
 
     def _reap_cancelled(self) -> None:
@@ -549,25 +824,63 @@ class GenerationEngine:
     # -- admission ----------------------------------------------------------
 
     def _free_slots(self) -> List[int]:
-        return [i for i, r in enumerate(self._slot_req) if r is None]
+        busy = self._chunking.slot if self._chunking is not None else None
+        return [i for i, r in enumerate(self._slot_req)
+                if r is None and i != busy]
+
+    def _padded(self, tokens: List[int], width: int) -> torch.Tensor:
+        """(1, width) right-padded token ids on the engine's device."""
+        padded = torch.zeros((1, width), dtype=torch.long)
+        padded[0, :len(tokens)] = torch.tensor(tokens)
+        return padded.to(self.device)
 
     def _admit(self) -> None:
+        if self._chunking is not None:
+            # one chunk of the long admission in flight per engine step
+            self._chunk_step()
         free = self._free_slots()
         while free:
             with self._lock:
                 if not self._pending:
                     return
                 req = self._pending.popleft()
+            long = (self.prefill_chunk is not None
+                    and len(req.prompt) > self.prefill_chunk)
+            if long and self._chunking is not None:
+                # a second long prompt while the chunker is busy waits for
+                # it, first in line (never a one-shot prefill at a wide
+                # bucket: the stall chunking exists to avoid)
+                with self._lock:
+                    self._pending.appendleft(req)
+                return
             slot = free.pop(0)
             self._admitting = req
             try:
-                self._admit_one(req, slot)
+                if long:
+                    # reserve the slot; one chunk per step from here on
+                    self._start_chunking(req, slot)
+                else:
+                    self._admit_one(req, slot)
             except Exception as e:   # noqa: BLE001 — fail THAT request only
                 req.error = e
                 req.out.put(None)
                 free.insert(0, slot)
             finally:
                 self._admitting = None
+
+    def _resolve_prefix(self, req: _Request) -> Optional[_Prefix]:
+        """The request's prefix, fetched once. An evicted auto-matched
+        prefix falls back to the full prompt; an evicted explicit one is
+        the caller's error."""
+        if req.prefix_id is None:
+            return None
+        pref = self._prefixes.get(req.prefix_id)
+        if pref is None:
+            if req.full_prompt is None:
+                raise KeyError(f"unknown prefix_id {req.prefix_id}")
+            req.prompt, req.full_prompt = req.full_prompt, None
+            req.prefix_id = None
+        return pref
 
     def _request_generator(self, req: _Request) -> torch.Generator:
         if req.seed is not None:
@@ -579,35 +892,153 @@ class GenerationEngine:
         gen.manual_seed(seed)
         return gen
 
-    def _admit_one(self, req: _Request, slot: int) -> None:
-        t = len(req.prompt)
-        bucket = next(b for b in self._buckets if b >= t)
-        padded = torch.zeros((1, bucket), dtype=torch.long)
-        padded[0, :t] = torch.tensor(req.prompt)
+    def _sampling_setup(self, req: _Request,
+                        prefix_tokens: Optional[tuple]) -> _Sampling:
+        """Sampling state for the pass that samples the request's first
+        token. Allocates the counts grid on the first penalized request."""
         temp = (self.temperature if req.temperature is None
                 else float(req.temperature))
         tp = self.top_p if req.top_p is None else float(req.top_p)
         tp = 1.0 if tp is None else tp
+        fp, pp = req.frequency_penalty, req.presence_penalty
+        vocab = self.cfg.vocab_size
+        pen_row = counts_row = bias_row = None
+        if fp or pp:
+            if self._counts is None:
+                self._counts = torch.zeros((self.slots, vocab),
+                                           dtype=torch.int32,
+                                           device=self.device)
+            # the prompt (and prefix) is the text so far: it counts, and
+            # its penalties apply to the first sampled token too
+            seen = list(req.prompt) + list(prefix_tokens or ())
+            counts_row = np.zeros(vocab, np.int32)
+            np.add.at(counts_row, np.asarray(seen, np.int64), 1)
+            pen_row = (fp * counts_row.astype(np.float32)
+                       + pp * (counts_row > 0).astype(np.float32))
+        if req.logit_bias:
+            bias_row = np.zeros(vocab, np.float32)
+            for tid, b in req.logit_bias.items():
+                bias_row[tid] = b
+            # pen_row is subtracted from the first token's logits, so the
+            # bias folds in negated
+            pen_row = (0.0 if pen_row is None else pen_row) - bias_row
+        if pen_row is not None:
+            pen_row = torch.from_numpy(pen_row).to(self.device)
         gen = self._request_generator(req) if temp > 0 else None
-        first, k_new, v_new, flp = _prefill(
-            self.params, padded.to(self.device), t, self.cfg, self._freqs,
-            np.array([temp], np.float32), self.top_k,
-            np.array([tp], np.float32), [gen])
-        self._finish_admission(req, slot, first, flp, k_new, v_new, t, temp,
-                               tp, gen)
+        return _Sampling(temp, tp, self.top_k, gen, pen_row, counts_row,
+                         bias_row)
+
+    def _admit_one(self, req: _Request, slot: int) -> None:
+        pref = self._resolve_prefix(req)
+        t = len(req.prompt)
+        samp = self._sampling_setup(req, pref.tokens if pref else None)
+        if pref is not None:
+            p_bucket = pref.k.shape[2]
+            # no bucket leaves room behind the prefix: pad the suffix to
+            # exactly what fits
+            bucket = next((b for b in self._buckets
+                           if b >= t and p_bucket + b <= self.max_len),
+                          self.max_len - p_bucket)
+            start = pref.length + t
+            first, k_new, v_new, flp = _prefill_suffix(
+                self.params, self._padded(req.prompt, bucket), t, pref.k,
+                pref.v, pref.length, self.cfg, self._freqs, samp)
+            self._prefix_hits += 1
+        else:
+            bucket = next(b for b in self._buckets if b >= t)
+            start = t
+            first, k_new, v_new, flp = _prefill(
+                self.params, self._padded(req.prompt, bucket), t, self.cfg,
+                self._freqs, samp)
+        self._finish_admission(req, slot, first, flp, k_new, v_new, start,
+                               samp)
+
+    def _start_chunking(self, req: _Request, slot: int) -> None:
+        """First chunk of a long admission: seed the accumulator, max_len
+        rows wide (the final splice is exactly the grid's width), with the
+        request's cached prefix when it has one, else with a from-zero
+        prefill of the first chunk. It costs one slot's worth of K/V while
+        the admission is in flight."""
+        pref = self._resolve_prefix(req)
+        c = self.prefill_chunk
+        if pref is not None:
+            k, v = pref.k, pref.v
+            consumed, frontier = 0, pref.length
+            self._prefix_hits += 1
+        else:
+            # samples nothing, so it draws nothing from any generator
+            _, k, v = _prefill_logits(self.params,
+                                      self._padded(req.prompt[:c], c), c,
+                                      self.cfg, self._freqs)
+            consumed = frontier = c
+        widen = self.max_len - k.shape[2]
+        self._chunking = _Chunking(req, slot, _zero_rows(k, widen),
+                                   _zero_rows(v, widen), consumed, frontier,
+                                   pref.tokens if pref else None)
+
+    def _chunk_step(self) -> None:
+        """Advance the chunked admission by one chunk; the last chunk
+        samples the first token and seats the request. Each pass runs over
+        the accumulator plus C zero rows (max_len + C: a short last chunk's
+        padding rows may pass max_len) and the rows past max_len are
+        sliced off again."""
+        ck = self._chunking
+        req = ck.req
+        if req.cancelled:
+            self._chunking = None
+            req.out.put(None)
+            return
+        c = self.prefill_chunk
+        take = min(c, len(req.prompt) - ck.consumed)
+        padded = self._padded(req.prompt[ck.consumed:ck.consumed + take], c)
+        try:
+            if ck.consumed + take < len(req.prompt):
+                _, k, v = _prefill_suffix_logits(
+                    self.params, padded, take, ck.k, ck.v, ck.frontier,
+                    self.cfg, self._freqs)
+                ck.k, ck.v = k[:, :, :self.max_len], v[:, :, :self.max_len]
+                ck.consumed += take
+                ck.frontier += take
+                return
+            samp = self._sampling_setup(req, ck.prefix_tokens)
+            first, k, v, flp = _prefill_suffix(
+                self.params, padded, take, ck.k, ck.v, ck.frontier, self.cfg,
+                self._freqs, samp)
+            self._chunking = None
+            self._finish_admission(req, ck.slot, first, flp,
+                                   k[:, :, :self.max_len],
+                                   v[:, :, :self.max_len],
+                                   ck.frontier + take, samp)
+        except Exception as e:   # noqa: BLE001 — fail THIS request only
+            self._chunking = None
+            req.error = e
+            req.out.put(None)
 
     def _finish_admission(self, req: _Request, slot: int, first, flp, k_new,
-                          v_new, start: int, temp: float, tp: float,
-                          gen: Optional[torch.Generator]) -> None:
-        """Splice the K/V rows, seat the request, emit its first token."""
+                          v_new, start: int, samp: _Sampling) -> None:
+        """Splice the K/V rows, seat the request, seed its rows of the
+        counts and bias grids, emit its first token."""
         _splice_slot(self._cache, slot, k_new, v_new)
         first_tok = int(first[0])
         self._slot_req[slot] = req
-        self._gens[slot] = gen
+        self._gens[slot] = samp.gen
         self._pos[slot] = start
         self._tok[slot] = first_tok
-        self._temps[slot] = temp
-        self._top_ps[slot] = tp
+        self._temps[slot] = samp.temp
+        self._top_ps[slot] = samp.top_p
+        self._fpen[slot] = req.frequency_penalty
+        self._ppen[slot] = req.presence_penalty
+        if samp.counts_row is not None:
+            samp.counts_row[first_tok] += 1
+            self._counts[slot] = torch.from_numpy(samp.counts_row).to(
+                self.device)
+        if samp.bias_row is not None:
+            if self._bias is None:
+                self._bias = torch.zeros((self.slots, self.cfg.vocab_size),
+                                         dtype=torch.float32,
+                                         device=self.device)
+            self._bias[slot] = torch.from_numpy(samp.bias_row).to(self.device)
+            self._bmask[slot] = 1.0
         self._admitted += 1
         self._emit(slot, first_tok, float(flp[0]))
         if req.first_token_at is not None:
@@ -639,9 +1070,10 @@ class GenerationEngine:
     # -- engine loop --------------------------------------------------------
 
     def step(self) -> int:
-        """Admit pending requests, then decode one block of tokens
-        (``decode_block`` steps) for every active slot. Returns the
-        remaining work — active slots plus queued requests."""
+        """Admit pending requests (or advance the chunked admission by one
+        chunk), then decode one block of tokens (``decode_block`` steps)
+        for every active slot. Returns the remaining work — active slots,
+        queued requests and a chunked admission in flight."""
         with torch.no_grad():
             return self._step_once()
 
@@ -651,12 +1083,23 @@ class GenerationEngine:
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
         if active:
             k = self.decode_block
+            dev = self.device
+            # the penalty and bias grids join the step only once a request
+            # has asked for them
+            steer = {}
+            if self._counts is not None:
+                steer.update(counts=self._counts,
+                             fpen=torch.from_numpy(self._fpen).to(dev),
+                             ppen=torch.from_numpy(self._ppen).to(dev))
+            if self._bias is not None:
+                steer.update(bias=self._bias,
+                             bmask=torch.from_numpy(self._bmask).to(dev))
             toks_k, lps_k = _decode_block(
                 self.params, self._cache,
-                torch.from_numpy(self._pos).to(self.device),
-                torch.from_numpy(self._tok).to(self.device), self.cfg,
+                torch.from_numpy(self._pos).to(dev),
+                torch.from_numpy(self._tok).to(dev), self.cfg,
                 self._freqs, k, self._temps.copy(), self.top_k,
-                self._top_ps.copy(), list(self._gens))
+                self._top_ps.copy(), list(self._gens), **steer)
             toks_k, lps_k = toks_k.cpu().numpy(), lps_k.cpu().numpy()
             self._steps += k
             for i in range(k):
@@ -671,7 +1114,8 @@ class GenerationEngine:
                                float(lps_k[i, slot]))
         with self._lock:
             queued = len(self._pending)
-        return sum(r is not None for r in self._slot_req) + queued
+        return (sum(r is not None for r in self._slot_req) + queued
+                + (self._chunking is not None))
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -709,7 +1153,9 @@ class GenerationEngine:
         return EngineStats(
             slots=self.slots,
             active=sum(r is not None for r in self._slot_req),
-            queued=len(self._pending),
+            # a request mid-chunked-admission is neither seated nor
+            # pending: it counts as queued
+            queued=len(self._pending) + (self._chunking is not None),
             admitted_total=self._admitted,
             finished_total=self._finished,
             tokens_generated=self._tokens,
@@ -721,11 +1167,18 @@ class GenerationEngine:
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 64,
                  timeout: Optional[float] = 300.0, *,
                  temperature: Optional[float] = None,
+                 prefix_id: Optional[int] = None,
                  top_p: Optional[float] = None,
+                 frequency_penalty: float = 0.0,
+                 presence_penalty: float = 0.0,
                  stop: Optional[Sequence] = None,
+                 logit_bias: Optional[Dict[int, float]] = None,
                  seed: Optional[int] = None) -> List[int]:
         """Blocking submit-and-wait on the background loop."""
         self.start()
         return self.submit(prompt, max_new_tokens, temperature=temperature,
-                           top_p=top_p, stop=stop, seed=seed
+                           prefix_id=prefix_id, top_p=top_p,
+                           frequency_penalty=frequency_penalty,
+                           presence_penalty=presence_penalty, stop=stop,
+                           logit_bias=logit_bias, seed=seed
                            ).result(timeout=timeout)

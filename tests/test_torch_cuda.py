@@ -815,3 +815,123 @@ def test_decode_wrappers_raise_on_misaligned_views(cuda):
     with pytest.raises(ValueError, match="^kq rows must be 16-byte aligned"):
         decode_attention_quant(q, kq, ks, good, ks, pos)
     assert (decode_attention.launches, decode_attention_quant.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the engine's request features (prefix cache, chunked prefill, penalties)
+# ---------------------------------------------------------------------------
+
+
+def _features_engine(params, cfg, cuda, **kw):
+    # 200-row prefill buckets take the plain attention, as every suffix
+    # pass does, so chunked, prefixed and one-shot admissions compute the
+    # same attention and differ only in the order of its sums; the 128
+    # bucket would take A1 in a from-zero prefill
+    return GenerationEngine(params, cfg, slots=4, max_len=512,
+                            prefill_buckets=(128, 200), device=cuda, **kw)
+
+
+def _slot_rows(eng, slot, n):
+    return eng._cache.k[:, slot, :n].clone(), eng._cache.v[:, slot, :n].clone()
+
+
+def _admit(eng, prompt):
+    """One request of one token, run to its end: its rows stay in slot 0."""
+    h = eng.submit(prompt, max_new_tokens=1)
+    while eng.step():
+        pass
+    h.result(timeout=0)
+
+
+def _tiny_prompt(cfg, n, seed):
+    return torch.randint(0, cfg.vocab_size, (n,),
+                         generator=torch.Generator().manual_seed(seed)).tolist()
+
+
+def test_engine_chunked_admission_matches_one_shot(cuda):
+    """tiny in bf16: a 200-token prompt in 64-token chunks (a from-zero
+    prefill, then suffix passes) leaves the slot's rows of every layer, and
+    gives first-token logits, within the bf16 row tolerance of a one-shot
+    admission in the 200 bucket."""
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+    cfg = LlamaConfig.tiny(attn_impl="auto")
+    params = llama_init(cfg, seed=3, device=cuda)
+    prompt = _tiny_prompt(cfg, 200, 0)
+    rows, logits = [], []
+    real = engine_mod._sample_first
+
+    def spy(lg, samp):
+        logits.append(lg.clone())
+        return real(lg, samp)
+
+    engine_mod._sample_first = spy
+    try:
+        for chunk in (None, 64):
+            eng = _features_engine(params, cfg, cuda, prefill_chunk=chunk)
+            _admit(eng, prompt)
+            rows.append(_slot_rows(eng, 0, 200))
+    finally:
+        engine_mod._sample_first = real
+    for got, want in zip(rows[1], rows[0]):
+        assert row_rel_err(got, want) <= ROW_RTOL[torch.bfloat16]
+    assert row_rel_err(logits[1], logits[0]) <= ROW_RTOL[torch.bfloat16]
+
+
+def test_engine_prefix_admission_matches_full_prompt(cuda):
+    """tiny in bf16: a 150-token registered prefix and a 50-token suffix
+    (padded to the 128 bucket, where a from-zero prefill would launch A1;
+    the suffix pass launches none) leave the slot's rows within the bf16
+    row tolerance of the full prompt admitted one-shot, and the stored
+    prefix rows unchanged."""
+    cfg = LlamaConfig.tiny(attn_impl="auto")
+    params = llama_init(cfg, seed=3, device=cuda)
+    prompt = _tiny_prompt(cfg, 200, 1)
+    eng = _features_engine(params, cfg, cuda)
+    _admit(eng, prompt)
+    want = _slot_rows(eng, 0, 200)
+    eng = _features_engine(params, cfg, cuda, auto_prefix=True)
+    pid = eng.register_prefix(prompt[:150])
+    keep = eng._prefixes[pid].k.clone(), eng._prefixes[pid].v.clone()
+    a1 = flash_attention.launches
+    _admit(eng, prompt)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == a1
+    assert eng._prefix_hits == 1
+    for got, ref in zip(_slot_rows(eng, 0, 200), want):
+        assert row_rel_err(got, ref) <= ROW_RTOL[torch.bfloat16]
+    assert torch.equal(eng._prefixes[pid].k, keep[0])
+    assert torch.equal(eng._prefixes[pid].v, keep[1])
+    a1 = flash_attention.launches
+    eng.register_prefix(prompt[:100])              # the 128 bucket: A1
+    torch.cuda.synchronize()
+    assert flash_attention.launches == a1 + cfg.n_layers
+
+
+def test_engine_zero_penalty_neighbours_are_bit_identical(cuda):
+    """tiny in bf16 on the card: the tokens and logprobs of unpenalized,
+    unbiased neighbours equal those of a run without the penalized and
+    biased requests, bit for bit; the biased request emits its token every
+    time and the penalized one repeats nothing."""
+    cfg = LlamaConfig.tiny(attn_impl="auto")
+    params = llama_init(cfg, seed=3, device=cuda)
+    prompts = [[5, 17, 42], [9, 8, 7, 6], [300, 2]]
+
+    def run(with_others):
+        eng = _features_engine(params, cfg, cuda, decode_block=2)
+        hs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        extra = []
+        if with_others:
+            extra = [eng.submit([1, 2, 3], max_new_tokens=12,
+                                logit_bias={77: 100.0}),
+                     eng.submit([4, 5, 6], max_new_tokens=12,
+                                presence_penalty=1e4)]
+        while eng.step():
+            pass
+        return ([(h.result(timeout=0), h.logprobs) for h in hs],
+                [h.result(timeout=0) for h in extra])
+
+    alone, _ = run(False)
+    beside, (forced, penalized) = run(True)
+    assert beside == alone
+    assert forced == [77] * 12
+    assert len(set(penalized) | {4, 5, 6}) == len(penalized) + 3

@@ -194,28 +194,23 @@ def test_submit_validation(params):
         eng.submit([1], max_new_tokens=2, top_p=1.5)
 
 
-@pytest.mark.parametrize("ctor_kw", [
-    # chunked prefill stays unported on the int8 grid too
-    {"quantize_kv": True, "prefill_chunk": 64}, {"auto_prefix": True},
-    {"prefill_chunk": 64},
-    {"aot_cache": object()}, {"mesh": object()},
-])
+@pytest.mark.parametrize("ctor_kw", [{"aot_cache": object()},
+                                     {"mesh": object()}])
 def test_unported_engine_knobs_raise(params, ctor_kw):
     with pytest.raises(NotImplementedError):
         GenerationEngine(params, cfg(), slots=1, max_len=16, device="cpu",
                          **ctor_kw)
 
 
-@pytest.mark.parametrize("submit_kw", [
-    {"prefix_id": 0}, {"adapter_id": 1}, {"frequency_penalty": 0.5},
-    {"presence_penalty": 0.5}, {"logit_bias": {3: 1.0}},
-])
+@pytest.mark.parametrize("submit_kw", [{"adapter_id": 1}])
 def test_unported_request_knobs_raise(params, submit_kw):
     eng = GenerationEngine(params, cfg(), slots=1, max_len=16, device="cpu")
     with pytest.raises(NotImplementedError):
         eng.submit([1, 2], max_new_tokens=2, **submit_kw)
     with pytest.raises(NotImplementedError):
-        eng.register_prefix([1, 2])
+        eng.register_prefix([1, 2], **submit_kw)
+    with pytest.raises(NotImplementedError):
+        eng.register_adapter({}, None)
 
 
 def test_engine_without_card_or_explicit_cpu_raises(params):
