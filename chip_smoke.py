@@ -52,7 +52,17 @@
    and a logit_bias request and a presence-penalty request beside 6 plain
    ones (the bias forces its token every time, the penalty repeats
    nothing, the plain requests' tokens and logprobs are bit-identical to
-   a run without the two; decode tokens/s with and without them).
+   a run without the two; decode tokens/s with and without them). Then
+   multi-LoRA on the same params: three adapters (rank 16, alpha 32,
+   wq/wk/wv/wo, B factors drawn from a seed), eight requests, two on the
+   base model and two on each adapter, with exact A1/B1 counts; the base
+   requests' tokens and logprobs bit-identical to the same run on the
+   engine without banks; each adapter request's first-token logits
+   against its prompt one-shot on merge_lora weights; one adapter
+   unregistered mid-decode (its slots repointed to the base model and
+   finished); a prefix registered through an adapter matched by
+   auto_prefix for that adapter's request and not for a base one; decode
+   ms/step with the three adapters active beside the grid with none.
 5. Serves Llama-3-8B again, full width and depth, quantized: int4 weights
    (group 128, llama_init_quantized) and an int8 KV cache
    (quantize_kv=True), the same warm-up and 12 requests. Checks that every
@@ -68,14 +78,29 @@
    launch counts (A1 for the registration and the first chunk, B3 for 7
    projections per layer in every prefill pass and decode step, B2 per
    layer and step) and first-token logits against one-shot prefills.
-6. Trains Llama-3.2-1B's shape (LlamaConfig.llama3_1b, full width and
+   Then one LoRA adapter request beside four base ones on these weights:
+   exact A1/B3/B2 counts, the adapter's first-token logits against the
+   weights dequantized to bf16 and merged, on the plain path.
+6. Serves Mixtral-8x7B at full width and depth (random weights from a
+   seed, built on the card one matrix at a time in quantize_params_int4's
+   layout: int8 experts, int4 attention and head) with an int8 KV cache:
+   the engine phases' warm-up and 12 requests on 8 slots (decode through
+   the expert dispatch), exact launch counts (A1 per prefill, B3 on the
+   four attention projections per pass and step, B2 per step, B1 none),
+   first-token logits against the plain path (int4 leaves dequantized to
+   bf16, experts int8), layer 0's FFN of a decode step through the gather
+   and the dispatch held per row on the engine's own hidden state, a
+   decode profile; then 4 requests on a 2-slot engine, whose decode takes
+   the gather, with the same exact counts. Prints decode tokens/s, TTFT,
+   weight, cache and peak GB, and each new phase its wall time.
+7. Trains Llama-3.2-1B's shape (LlamaConfig.llama3_1b, full width and
    depth, bf16, random weights from a seed) with make_train_step and
    default_optimizer on one batch of 4 x 2048 tokens: warm-up steps, then
    timed steps. Checks finite, falling losses and that A1, A2 and A3
    carried every layer of every step; prints tokens/s, ms/step, MFU, peak
    memory and a 2-step profile. Then holds the kernel path's gradients to
    the plain path's (fp32, 2 layers) and its loss (bf16, full depth).
-7. Prints one JSON line of per-kernel numbers, the card line, and as the
+8. Prints one JSON line of per-kernel numbers, the card line, and as the
    last line {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result.
@@ -193,6 +218,23 @@ PREFIX_LEN = 1000
 PREFIX_SUFFIXES = (40, 64, 100, 200, 50, 90, 150, 180)
 CHUNK, CHUNK_PROMPT = 512, 1800
 BIAS_TOKEN, HUGE_PRESENCE = 12345, 1e4
+# the LoRA phases: rank 16, alpha 32 on the four attention projections, B
+# factors drawn N(0, LORA_B_STD^2) from a seed (lora_init's zero B would
+# make every check vacuous): the delta is ~0.4 of a base projection's
+# entries, so adapter tokens part from the base model's. Eight requests on
+# the bf16 engine, two on the base model and two on each of three
+# adapters, decode LORA_TIMED_STEPS timed steps with all three active
+# before one is unregistered; a 300-token prefix registered through one
+# adapter is then offered to a base request and an adapter request
+LORA_RANK, LORA_ALPHA, LORA_B_STD = 16, 32.0, 0.05
+LORA_PROMPTS = (40, 100, 200, 300, 64, 128, 500, 90)
+LORA_TIMED_STEPS = 6
+LORA_PREFIX = 300
+# the MoE phase: Mixtral-8x7B at full width and depth in the int4/int8
+# serving layout, the engine phases' grid with an int8 KV cache, then a
+# 2-slot engine on the same weights, whose decode takes the K-expert
+# gather (2 x 2 x 2 <= 8 experts) where 8 slots take the dispatch
+MOE_GATHER_PROMPTS = (40, 300, 700, 1500)
 
 
 def fail(msg: str) -> None:
@@ -778,7 +820,8 @@ def drive_engine(torch, ops_attn, ops_dec, card):
     profile_decode(torch, eng, prompts)
     features = drive_engine_features(torch, ops_attn, ops_dec, params, cfg, eng,
                                      card)
-    return flash_n, decode_n, features
+    lora = drive_lora(torch, ops_attn, ops_dec, params, cfg, eng, card)
+    return flash_n, decode_n, features, lora
 
 
 class Launches:
@@ -831,22 +874,24 @@ def decode_rate(steps):
 
 
 @contextlib.contextmanager
-def recorded_suffix_logits(engine_mod):
-    """The first-token logits of every suffix pass the engine runs (a
-    prefix hit's, and each prefill chunk's after the first), in order."""
+def recorded_logits(engine_mod, name="_prefill_suffix_logits"):
+    """The first-token logits of every pass of ``name`` the engine runs,
+    in order: by default the suffix passes (a prefix hit's, and each
+    prefill chunk's after the first); ``_prefill_logits`` for the
+    from-zero prefills."""
     calls = []
-    real = engine_mod._prefill_suffix_logits
+    real = getattr(engine_mod, name)
 
     def record(*args, **kw):
         out = real(*args, **kw)
         calls.append(out[0].clone())
         return out
 
-    engine_mod._prefill_suffix_logits = record
+    setattr(engine_mod, name, record)
     try:
         yield calls
     finally:
-        engine_mod._prefill_suffix_logits = real
+        setattr(engine_mod, name, real)
 
 
 def one_shot(torch, engine_mod, params, cfg, eng, prompt):
@@ -932,7 +977,7 @@ def drive_engine_features(torch, ops_attn, ops_dec, params, cfg, plain, card):
     prefix = prompt(PREFIX_LEN)
     suffixes = [prompt(n) for n in PREFIX_SUFFIXES]
     launches.zero()
-    with recorded_suffix_logits(engine_mod) as suffix_logits:
+    with recorded_logits(engine_mod) as suffix_logits:
         pid = eng.register_prefix(prefix)
         stored = eng._prefixes[pid]
         kept = (stored.k.clone(), stored.v.clone())
@@ -1002,7 +1047,7 @@ def drive_engine_features(torch, ops_attn, ops_dec, params, cfg, plain, card):
     shorts = [prompt(40) for _ in range(7)]
     long = prompt(CHUNK_PROMPT)
     launches.zero()
-    with recorded_suffix_logits(engine_mod) as chunk_logits:
+    with recorded_logits(engine_mod) as chunk_logits:
         handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in shorts]
         eng.step()
         handles.append(eng.submit(long, max_new_tokens=MAX_NEW))
@@ -1112,7 +1157,7 @@ def drive_engine_q4_features(torch, ops_attn, ops_dec, ops_q4, params, cfg,
     prefix, suffix, long = prompt(PREFIX_LEN), prompt(100), prompt(CHUNK_PROMPT)
     launches = Launches(ops_attn, ops_dec, ops_q4)
     launches.zero()
-    with recorded_suffix_logits(engine_mod) as suffix_logits:
+    with recorded_logits(engine_mod) as suffix_logits:
         pid = eng.register_prefix(prefix)
         hp = eng.submit(suffix, max_new_tokens=MAX_NEW, prefix_id=pid)
         hc = eng.submit(long, max_new_tokens=MAX_NEW)
@@ -1298,7 +1343,8 @@ def drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card):
     torch.cuda.empty_cache()
     features = drive_engine_q4_features(torch, ops_attn, ops_dec, ops_q4,
                                         params, cfg, prompt, card)
-    return counts, features
+    lora = drive_lora_q4(torch, ops_attn, ops_dec, ops_q4, params, cfg, card)
+    return counts, features, lora
 
 
 def check_decode_step_quant(torch, engine_mod, ops_dec, eng, params, cfg,
@@ -1411,6 +1457,480 @@ def profile_steps(torch, label, run, n) -> None:
         print(f"profile: {dev_us(e) / n / 1e3:.4f} ms/step "
               f"({dev_us(e) / busy_us:.3f} of busy) x{e.count // n}/step "
               f"{e.key[:90]}", flush=True)
+
+
+def seeded_adapter(torch, params, lcfg, seed):
+    """A LoRA adapter for ``params``: lora_init's A factors, and B factors
+    drawn N(0, LORA_B_STD^2) on the card from ``seed``."""
+    from kubetorch_tpu_torch.models.lora import lora_init
+    ad = lora_init(params, lcfg, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    for k, v in ad["layers"].items():
+        if k.endswith("__b"):
+            ad["layers"][k] = (torch.randn(v.shape, generator=gen, device="cuda")
+                               * LORA_B_STD).to(v.dtype)
+    return ad
+
+
+def lora_config():
+    from kubetorch_tpu_torch.models.lora import LoraConfig
+    return LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA,
+                      targets=("wq", "wk", "wv", "wo"))
+
+
+def timed_steps(torch, eng, n):
+    """ms per step over ``n`` engine steps that admit nothing."""
+    t = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def check_merged_logits(torch, label, got, merged, cfg, eng, prompt, first_tok,
+                        impl=None):
+    """An adapter request's first-token logits (the engine's activation
+    path) against the same prompt one-shot on merge_lora weights, within
+    LOGITS_REL_L2; ``impl`` runs the merged side with that attn_impl."""
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+    c = cfg if impl is None else dataclasses.replace(cfg, attn_impl=impl)
+    lk, _, _ = one_shot(torch, engine_mod, merged, c, eng, prompt)
+    check_feature_logits(torch, label, got, lk, first_tok)
+
+
+def drive_lora(torch, ops_attn, ops_dec, params, cfg, plain, card):
+    """Multi-LoRA on the bf16 Llama-3-8B engine at full width and depth,
+    on the engine phase's params; ``plain`` (that phase's engine, no
+    banks) runs the same traffic on the base model. Returns the launches
+    of the adapter runs together."""
+    from kubetorch_tpu_torch.models.lora import merge_lora
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    lcfg = lora_config()
+    adapters = [seeded_adapter(torch, params, lcfg, seed) for seed in (1, 2, 3)]
+    eng = GenerationEngine(params, cfg, **FEATURE_GRID, auto_prefix=True,
+                           device="cuda")
+    ids = [eng.register_adapter(a, lcfg) for a in adapters]
+    # warm-up, not counted: one request per adapter (allocator, GEMM plans)
+    warm = [eng.submit(prompt(100), max_new_tokens=2, adapter_id=i) for i in ids]
+    drain(torch, eng)
+    for h in warm:
+        h.result(timeout=0)
+    prompts = [prompt(n) for n in LORA_PROMPTS]
+    owners = [None, None, ids[0], ids[0], ids[1], ids[1], ids[2], ids[2]]
+    launches = Launches(ops_attn, ops_dec)
+    L = cfg.n_layers
+    steps0 = eng.stats().decode_steps
+    launches.zero()
+    with recorded_logits(engine_mod, "_prefill_logits") as first_logits:
+        handles = [eng.submit(p, max_new_tokens=MAX_NEW, adapter_id=a)
+                   for p, a in zip(prompts, owners)]
+        eng.step()                        # admits all eight, one decode step
+        torch.cuda.synchronize()
+        ms_adapters = timed_steps(torch, eng, LORA_TIMED_STEPS)
+        evicted = [i for i, r in enumerate(eng._slot_req)
+                   if r is not None and r.adapter_id == ids[2]]
+        eng.unregister_adapter(ids[2])
+        repointed = [int(eng._aidx[i]) for i in evicted]
+        drain(torch, eng)
+    got = launches.read()
+    n_steps = eng.stats().decode_steps - steps0
+    check_launches("lora", got, dict(flash_fwd=L * len(prompts),
+                                     decode_attention=L * n_steps,
+                                     decode_attention_quant=0))
+    outs = [h.result(timeout=0) for h in handles]
+    if any(len(o) != MAX_NEW for o in outs) or len(first_logits) != len(prompts):
+        fail(f"lora: tokens {[len(o) for o in outs]}, {len(first_logits)} "
+             f"prefills recorded")
+    if len(evicted) != 2 or repointed != [0, 0]:
+        fail(f"lora: unregistering adapter {ids[2]} left slots {evicted} at "
+             f"bank indices {repointed}, not the base model's 0")
+    print(f"lora: 8 requests (2 base, 2 on each of 3 adapters, rank "
+          f"{LORA_RANK}, alpha {LORA_ALPHA}) completed, {MAX_NEW} tokens each; "
+          f"adapter {ids[2]} unregistered after {1 + LORA_TIMED_STEPS} decode "
+          f"steps, its 2 slots repointed to the base model and finished; "
+          f"A1 = {L} x 8 prefills, B1 = {L} x {n_steps} steps", flush=True)
+
+    # the same eight prompts on the engine without banks: the base
+    # requests' tokens and logprobs must be the same bits
+    ref = [plain.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    plain.step()
+    torch.cuda.synchronize()
+    ms_none = timed_steps(torch, plain, LORA_TIMED_STEPS)
+    drain(torch, plain)
+    same = all(handles[i].result(timeout=0) == ref[i].result(timeout=0)
+               and handles[i].logprobs == ref[i].logprobs for i in (0, 1))
+    differ = sum(outs[i] != ref[i].result(timeout=0) for i in range(2, 8))
+    print(f"lora: base requests beside 3 adapters vs the engine without "
+          f"banks: tokens and logprobs bit-identical: {same}; adapter "
+          f"requests whose tokens differ from the base model's: {differ} of 6",
+          flush=True)
+    if not same:
+        fail("lora: a base request's tokens or logprobs changed beside adapters")
+    if differ == 0:
+        fail("lora: every adapter request gave the base model's tokens")
+    print(f"lora: decode ms/step with 3 adapters active {ms_adapters} vs the "
+          f"same grid with none {ms_none} (8 slots, {LORA_TIMED_STEPS} steps "
+          f"each, after one step past admission) card={card}", flush=True)
+
+    for j, aid in enumerate(ids):
+        merged = merge_lora(params, adapters[j], lcfg)
+        for i in (2 + 2 * j, 3 + 2 * j):
+            check_merged_logits(torch, f"lora adapter {aid} request {i} "
+                                f"({len(prompts[i])} tokens) vs merge_lora",
+                                first_logits[i], merged, cfg, plain,
+                                prompts[i], outs[i][0])
+        del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a prefix registered through adapter ids[0] serves its requests only
+    prefix, suffix = prompt(LORA_PREFIX), prompt(60)
+    hits0 = eng._prefix_hits
+    launches.zero()
+    eng.register_prefix(prefix, adapter_id=ids[0])
+    hb = eng.submit(prefix + suffix, max_new_tokens=4)
+    drain(torch, eng)
+    base_hits = eng._prefix_hits - hits0
+    ha = eng.submit(prefix + suffix, max_new_tokens=4, adapter_id=ids[0])
+    drain(torch, eng)
+    adapter_hits = eng._prefix_hits - hits0 - base_hits
+    prefix_n = launches.read()
+    print(f"lora: a {LORA_PREFIX}-token prefix registered through adapter "
+          f"{ids[0]}: auto_prefix hits for a base request {base_hits}, for a "
+          f"request on the adapter {adapter_hits}; A1 {prefix_n['flash_fwd']} "
+          f"(the registration and the base request's prefill)", flush=True)
+    if (base_hits, adapter_hits) != (0, 1) or prefix_n["flash_fwd"] != 2 * L \
+            or len(hb.result(timeout=0)) != 4 or len(ha.result(timeout=0)) != 4:
+        fail("lora: the adapter-keyed prefix was not matched as expected")
+    total = {k: got[k] + prefix_n[k] for k in got}
+    del eng, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lora: phase wall {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return total
+
+
+def drive_lora_q4(torch, ops_attn, ops_dec, ops_q4, params, cfg, card):
+    """One LoRA adapter request beside four base ones on the int4 + int8-KV
+    Llama-3-8B engine, on the quantized phase's weights: exact launch
+    counts, and the adapter's first-token logits against the weights
+    dequantized to bf16 and merged, on the plain path."""
+    from kubetorch_tpu_torch.models.lora import merge_lora
+    from kubetorch_tpu_torch.models.quant import dequantize_params
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    plain = dequantize_params(params, torch.bfloat16)
+    lcfg = lora_config()
+    adapter = seeded_adapter(torch, plain, lcfg, 4)
+    eng = GenerationEngine(params, cfg, **FEATURE_GRID, quantize_kv=True,
+                           device="cuda")
+    aid = eng.register_adapter(adapter, lcfg)
+    warm = eng.submit(prompt(100), max_new_tokens=2, adapter_id=aid)
+    drain(torch, eng)
+    warm.result(timeout=0)
+    prompts = [prompt(n) for n in (40, 200, 300, 500, 128)]
+    owners = [None, None, None, None, aid]
+    launches = Launches(ops_attn, ops_dec, ops_q4)
+    steps0 = eng.stats().decode_steps
+    launches.zero()
+    with recorded_logits(engine_mod, "_prefill_logits") as first_logits:
+        handles = [eng.submit(p, max_new_tokens=MAX_NEW, adapter_id=a)
+                   for p, a in zip(prompts, owners)]
+        drain(torch, eng)
+    got = launches.read()
+    steps = eng.stats().decode_steps - steps0
+    L = cfg.n_layers
+    head = params["lm_head"]
+    head_q4 = int(ops_q4.q4_supported((1, cfg.dim), head["__kt_q4__"].shape,
+                                      head["scale"].shape))
+    n = len(prompts)
+    check_launches("lora_q4", got, dict(
+        flash_fwd=L * n, decode_attention=0, decode_attention_quant=L * steps,
+        q4_matmul=(7 * L + head_q4) * (n + steps)))
+    outs = [h.result(timeout=0) for h in handles]
+    if any(len(o) != MAX_NEW for o in outs):
+        fail(f"lora_q4: tokens {[len(o) for o in outs]}")
+    print(f"lora_q4: 1 adapter request beside 4 base ones on the int4 + "
+          f"int8-KV engine, {MAX_NEW} tokens each over {steps} decode steps: "
+          f"A1 = {L} x {n}, B3 = {7 * L + head_q4} x ({n} prefills + steps), "
+          f"B2 = {L} x steps card={card}", flush=True)
+    merged = merge_lora(plain, adapter, lcfg)
+    check_merged_logits(torch, "lora_q4 adapter request vs merge_lora on the "
+                        "bf16-dequantized weights, plain path", first_logits[4],
+                        merged, cfg, eng, prompts[4], outs[4][0], impl="xla")
+    del eng, plain, merged, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lora_q4: phase wall {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return got
+
+
+def mixtral_init_quantized(torch, cfg, seed):
+    """Random Mixtral params in the quantize_params_int4 layout, built on
+    the card one matrix at a time (each drawn in fp32 and quantized):
+    int8 expert banks, int4 (group 128) attention and head, fp32 router
+    (drawn, rounded to bf16, kept in fp32 as moe_init does) and norms, a
+    bf16 embedding."""
+    from kubetorch_tpu_torch.models.quant import (_quantize_leaf,
+                                                  _quantize_leaf_int4)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, L, E, f = cfg.dim, cfg.n_layers, cfg.n_experts, cfg.ffn_dim
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def draw(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+        return w.mul_(1.0 / math.sqrt(fan_in))
+
+    def stacked(lead, in_dim, out_dim, quantizer):
+        acc = None
+        for idx in itertools.product(*(range(n) for n in lead)):
+            leaf = quantizer(draw((in_dim, out_dim), in_dim))
+            if acc is None:
+                acc = {k: torch.empty(lead + tuple(v.shape), dtype=v.dtype,
+                                      device="cuda") for k, v in leaf.items()}
+            for k, v in leaf.items():
+                acc[k][idx] = v
+        return acc
+
+    layers = {"attn_norm": torch.ones((L, d), device="cuda")}
+    for name, (i, o) in (("wq", (d, nh * hd)), ("wk", (d, nkv * hd)),
+                         ("wv", (d, nkv * hd)), ("wo", (nh * hd, d))):
+        layers[name] = stacked((L,), i, o, _quantize_leaf_int4)
+    layers["ffn_norm"] = torch.ones((L, d), device="cuda")
+    layers["router"] = draw((L, d, E), d).to(cfg.dtype).float()
+    layers["experts"] = {
+        name: stacked((L, E), i, o, _quantize_leaf)
+        for name, (i, o) in (("w_gate", (d, f)), ("w_up", (d, f)),
+                             ("w_down", (f, d)))}
+    return {"embed": draw((cfg.vocab_size, d), d).to(cfg.dtype),
+            "layers": layers,
+            "final_norm": torch.ones((d,), device="cuda"),
+            "lm_head": _quantize_leaf_int4(draw((d, cfg.vocab_size), d))}
+
+
+@contextlib.contextmanager
+def pinned_routing(moe_mod):
+    """Record every top-k choice ``moe._route`` makes; after ``replay()``,
+    make the same choices again in the same order, with gates renormalized
+    from the new run's own probabilities."""
+    real = moe_mod._route
+    chosen, state = [], {"replay": None}
+
+    def route(cfg, x, lw):
+        probs, vals, idx = real(cfg, x, lw)
+        if state["replay"] is None:
+            chosen.append(idx)
+            return probs, vals, idx
+        idx = next(state["replay"])
+        vals = probs.gather(-1, idx)
+        return probs, vals / (vals.sum(-1, keepdim=True) + 1e-9), idx
+
+    def replay():
+        state["replay"] = iter(chosen)
+
+    moe_mod._route = route
+    try:
+        yield replay
+    finally:
+        moe_mod._route = real
+
+
+def check_moe_first_token_logits(torch, params, plain_params, cfg, eng,
+                                 prompts):
+    """First-token logits of a 300-token prompt in the 512 bucket, the
+    kernel path against the plain path, with the plain path's expert
+    choices pinned to the kernel path's (``pinned_routing``): within
+    LOGITS_REL_L2, as the Llama engines. Unpinned, a router whose top-2
+    and top-3 logits sit within the two paths' rounding difference picks
+    another expert for that token in that layer, which moves its hidden
+    state by a whole expert's output; the unpinned distance is printed
+    beside the gated one."""
+    from kubetorch_tpu_torch.models import moe as moe_mod
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+    n = 300
+    toks = torch.zeros((1, 512), dtype=torch.long)
+    toks[0, :n] = torch.tensor(prompts[4])
+    toks = toks.cuda()
+    cfg_x = dataclasses.replace(cfg, attn_impl="xla")
+    with torch.no_grad():
+        with pinned_routing(moe_mod) as replay:
+            lk, _, _ = engine_mod._prefill_logits(params, toks, n, cfg, eng._freqs)
+            replay()
+            lp, _, _ = engine_mod._prefill_logits(plain_params, toks, n, cfg_x,
+                                                  eng._freqs)
+        lx, _, _ = engine_mod._prefill_logits(plain_params, toks, n, cfg_x,
+                                              eng._freqs)
+    if not (torch.isfinite(lk).all() and lk.shape == (1, cfg.vocab_size)):
+        fail("moe: first-token logits not finite or of the wrong shape")
+    rel = float((lk - lp).norm() / lp.norm())
+    free = float((lk - lx).norm() / lx.norm())
+    print(f"moe: first-token logits kernel vs plain path, expert choices "
+          f"pinned: rel_l2={rel} max_abs={float((lk - lp).abs().max())} "
+          f"tol_rel_l2={LOGITS_REL_L2} argmax {int(lk.argmax())}/"
+          f"{int(lp.argmax())}; each path routing on its own: rel_l2={free} "
+          f"argmax {int(lk.argmax())}/{int(lx.argmax())}", flush=True)
+    if not rel <= LOGITS_REL_L2:
+        fail(f"moe: first-token logits differ, rel L2 {rel} > {LOGITS_REL_L2}")
+
+
+def check_moe_ffn_forms(torch, engine_mod, eng, cfg, prompts):
+    """Layer 0's FFN input in one decode step of the full 8-slot grid,
+    taken from the engine's own call: moe_ffn_decode (the gather) and
+    moe_ffn at T = 1 (the dispatch the 8-slot step runs) agree per row."""
+    from kubetorch_tpu_torch.models.moe import moe_ffn, moe_ffn_decode
+    from kubetorch_tpu_torch.ops.tolerance import ROW_RTOL, row_rel_err
+    hs = [eng.submit(p[:40], max_new_tokens=4) for p in prompts[:eng.slots]]
+    eng.step()                                  # admissions + one decode step
+    seen = []
+    real = engine_mod.ffn_block
+
+    def spy(c, h, lw, **kw):
+        if not seen and h.shape[1] == 1:
+            seen.append((h.clone(), lw))
+        return real(c, h, lw, **kw)
+
+    engine_mod.ffn_block = spy
+    try:
+        eng.step()
+    finally:
+        engine_mod.ffn_block = real
+    h, lw = seen[0]
+    with torch.no_grad():
+        gathered = moe_ffn_decode(cfg, h, lw)
+        dispatched, _ = moe_ffn(cfg, h, lw)
+    err = row_rel_err(gathered, dispatched)
+    tol = ROW_RTOL[torch.bfloat16]
+    print(f"moe: layer 0 FFN of a decode step, {h.shape[0]} slots: "
+          f"moe_ffn_decode (gather) vs moe_ffn (dispatch) max_row_rel_err="
+          f"{err} row_rtol={tol}", flush=True)
+    if not (torch.isfinite(gathered).all() and err <= tol):
+        fail(f"moe: the gather and the dispatch disagree: {err} > {tol}")
+    while eng.step():
+        pass
+    for h in hs:
+        h.result(timeout=0)
+
+
+def drive_moe(torch, ops_attn, ops_dec, ops_q4, card):
+    """Mixtral-8x7B at full width and depth through GenerationEngine, int8
+    expert banks beside int4 attention and head and an int8 KV cache: the
+    engine phases' warm-up and 12 requests on 8 slots (decode through the
+    dispatch), then 4 requests on 2 slots (decode through the gather)."""
+    from kubetorch_tpu_torch.models.moe import MoeConfig
+    from kubetorch_tpu_torch.models.quant import Q4KEY, dequant, quantized_bytes
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    cfg = MoeConfig.mixtral_8x7b()
+    params = mixtral_init_quantized(torch, cfg, seed=0)
+    torch.cuda.synchronize()
+    sizes = quantized_bytes(params)
+    weight_gb = (sizes["quantized"] + sizes["full"]) / 1e9
+    grid = dict(max_len=2048, prefill_buckets=(128, 256, 512, 1024),
+                quantize_kv=True, device="cuda")
+    eng = GenerationEngine(params, cfg, slots=8, **grid)
+    cache_gb = sum(t.numel() * t.element_size() for t in eng._cache) / 1e9
+    print(f"moe: Mixtral-8x7B ({cfg.param_count()} params; experts int8, "
+          f"attention and head int4 group {Q4_GROUP}) initialised in "
+          f"{time.perf_counter() - t_phase:.2f}s; weight_gb={weight_gb} "
+          f"cache_gb={cache_gb} (int8 grid, 8 slots x 2048) allocated_gb="
+          f"{torch.cuda.memory_allocated() / 1e9} card={card}", flush=True)
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    warm = [eng.submit(prompt(n), max_new_tokens=2)
+            for n in (100, 200, 400, 800, 1500)]
+    drain(torch, eng)
+    for h in warm:
+        h.result(timeout=0)
+    prompts = [prompt(n) for n in ENGINE_PROMPT_LENS]
+    launches = Launches(ops_attn, ops_dec, ops_q4)
+    L, n_req = cfg.n_layers, len(prompts)
+    head = params["lm_head"]
+    head_q4 = int(ops_q4.q4_supported((1, cfg.dim), head[Q4KEY].shape,
+                                      head["scale"].shape))
+
+    def want(prefills, steps):
+        # A1 per from-zero prefill, B3 on wq/wk/wv/wo (and the head where
+        # it tiles) per pass and step, B2 per step, B1 none
+        return dict(flash_fwd=L * prefills, decode_attention=0,
+                    decode_attention_quant=L * steps,
+                    q4_matmul=(4 * L + head_q4) * (prefills + steps))
+
+    torch.cuda.reset_peak_memory_stats()
+    launches.zero()
+    handles, tok_s, steps = serve_requests(torch, eng, cfg, prompts)
+    counts = launches.read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    outs = check_outputs("moe", handles, cfg, prompts)
+    check_launches("moe", counts, want(n_req, steps))
+    ttft = [h.time_to_first_token() for h in handles]
+    print(f"moe: {len(outs)} requests completed, {MAX_NEW} tokens each, over "
+          f"{steps} decode steps (8 slots: the dispatch, 2 x 8 x "
+          f"{cfg.experts_per_token} > {cfg.n_experts} experts)", flush=True)
+    print(f"moe: decode_tok_per_s={tok_s} (tokens of steps without admission "
+          f"/ their wall time) mean_ttft_s={sum(ttft) / len(ttft)} (submit to "
+          f"first token, queueing included) weight_gb={weight_gb} cache_gb="
+          f"{cache_gb} peak_gb={peak_gb} card={card}", flush=True)
+
+    # the plain path: int4 leaves dequantized to bf16, experts kept int8
+    plain = {**params, "lm_head": dequant(head, torch.bfloat16),
+             "layers": {k: dequant(v, torch.bfloat16)
+                        if isinstance(v, dict) and Q4KEY in v else v
+                        for k, v in params["layers"].items()}}
+    check_moe_first_token_logits(torch, params, plain, cfg, eng, prompts)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_moe_ffn_forms(torch, engine_mod, eng, cfg, prompts)
+    profile_decode(torch, eng, prompts)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two slots: 2 x 2 x 2 <= 8, the decode gather
+    eng = GenerationEngine(params, cfg, slots=2, **grid)
+    steps0 = eng.stats().decode_steps
+    launches.zero()
+    small = [eng.submit(prompt(n), max_new_tokens=MAX_NEW)
+             for n in MOE_GATHER_PROMPTS]
+    rate = decode_rate(drain(torch, eng))
+    gather_counts = launches.read()
+    g_steps = eng.stats().decode_steps - steps0
+    check_launches("moe_gather", gather_counts,
+                   want(len(MOE_GATHER_PROMPTS), g_steps))
+    if any(len(h.result(timeout=0)) != MAX_NEW for h in small):
+        fail("moe_gather: a request did not complete")
+    print(f"moe_gather: 2 slots, {len(small)} requests of {MAX_NEW} tokens "
+          f"over {g_steps} decode steps through moe_ffn_decode: "
+          f"decode_tok_per_s={rate[0]} ({rate[1]} ms/step) card={card}",
+          flush=True)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe: phase wall {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts, gather_counts, dict(decode_tok_per_s=tok_s,
+                                       mean_ttft_s=sum(ttft) / len(ttft),
+                                       weight_gb=weight_gb, cache_gb=cache_gb,
+                                       peak_gb=peak_gb)
 
 
 def drive_training(torch, ops_attn, card):
@@ -1568,10 +2088,18 @@ def main() -> None:
     dec_q = check_decode(torch, F, ops_dec, quant=True)
     q4 = check_q4(torch, ops_q4)
     train_k = check_train_kernels(torch, F, ops_attn)
-    flash_n, decode_n, feat_n = drive_engine(torch, ops_attn, ops_dec, card)
+    t = time.perf_counter()
+    flash_n, decode_n, feat_n, lora_n = drive_engine(torch, ops_attn, ops_dec,
+                                                     card)
     gc.collect()
     torch.cuda.empty_cache()
-    quant_n, qfeat_n = drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card)
+    quant_n, qfeat_n, qlora_n = drive_engine_quant(torch, ops_attn, ops_dec,
+                                                   ops_q4, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"engines: Llama-3-8B phases wall {time.perf_counter() - t:.1f}s",
+          flush=True)
+    moe_n, moe_gather_n, _ = drive_moe(torch, ops_attn, ops_dec, ops_q4, card)
     gc.collect()
     torch.cuda.empty_cache()
     train_n, train = drive_training(torch, ops_attn, card)
@@ -1585,12 +2113,17 @@ def main() -> None:
              serving=dict(launches=flash_n, **flash),
              serving_quant=dict(launches=quant_n["flash_fwd"]),
              engine_features=dict(launches=feat_n["flash_fwd"]),
-             engine_q4_features=dict(launches=qfeat_n["flash_fwd"])),
+             engine_q4_features=dict(launches=qfeat_n["flash_fwd"]),
+             lora=dict(launches=lora_n["flash_fwd"]),
+             lora_q4=dict(launches=qlora_n["flash_fwd"]),
+             moe=dict(launches=moe_n["flash_fwd"]),
+             moe_gather=dict(launches=moe_gather_n["flash_fwd"])),
         dict(name="decode_attention", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
              launches=decode_n, path="serving", **dec,
-             engine_features=dict(launches=feat_n["decode_attention"])),
+             engine_features=dict(launches=feat_n["decode_attention"]),
+             lora=dict(launches=lora_n["decode_attention"])),
         dict(name="flash_bwd_dq", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:140",
@@ -1605,13 +2138,19 @@ def main() -> None:
              launches=quant_n["decode_attention_quant"],
              path="quantized serving (int8 KV cache)", **dec_q,
              engine_q4_features=dict(
-                 launches=qfeat_n["decode_attention_quant"])),
+                 launches=qfeat_n["decode_attention_quant"]),
+             lora_q4=dict(launches=qlora_n["decode_attention_quant"]),
+             moe=dict(launches=moe_n["decode_attention_quant"]),
+             moe_gather=dict(launches=moe_gather_n["decode_attention_quant"])),
         dict(name="q4_matmul", route="cuda",
              source="kubetorch_tpu_torch/csrc/quant_matmul.cu",
              replaces="kubetorch_tpu/ops/quant_matmul.py:31",
              launches=quant_n["q4_matmul"],
              path="quantized serving (int4 weights)", **q4,
-             engine_q4_features=dict(launches=qfeat_n["q4_matmul"])),
+             engine_q4_features=dict(launches=qfeat_n["q4_matmul"]),
+             lora_q4=dict(launches=qlora_n["q4_matmul"]),
+             moe=dict(launches=moe_n["q4_matmul"]),
+             moe_gather=dict(launches=moe_gather_n["q4_matmul"])),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
-"""Autoregressive generation with a static KV cache, the dense-Llama part
-of ``kubetorch_tpu/models/generate.py``.
+"""Autoregressive generation with a static KV cache, the counterpart of
+``kubetorch_tpu/models/generate.py`` for the dense Llama and the MoE
+family (``models.moe``).
 
 The cache is one preallocated (L, B, S_max, NKV, Hd) buffer per K and V,
 updated in place (where the JAX version returns a new cache, this one
@@ -7,8 +8,11 @@ writes into the given one and returns it). A from-zero prefill whose
 length is a multiple of 128 runs through the flash attention kernel; every
 other step attends to the cache with the plain masked einsum. Params may
 be quantized (``models.quant``): each layer is dequantized at the top of
-its body (int8 materializes, int4 stays packed for ``wdot``). MoE layers
-and LoRA adapters are not ported yet and raise.
+its body (int8 materializes, int4 stays packed for ``wdot``; an MoE
+layer's expert bank stays as stored and ``models.moe`` dequantizes the
+experts it runs). ``_layer_step`` and ``ffn_block`` are shared with the
+engine (``serve.engine``), which also threads LoRA adapters
+(``models.lora``) and the MoE routing mask through them.
 """
 
 from __future__ import annotations
@@ -18,7 +22,10 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from .common import resolve_device
-from .llama import LlamaConfig, apply_rope, layer_weights, rmsnorm, rope_freqs
+from .llama import apply_rope, layer_weights, rmsnorm, rope_freqs
+from .lora import lora_proj
+from .moe import moe_ffn_decode
+from .moe import _dispatch as _moe_dispatch
 from .quant import dequant_layer, lm_head_dot, wdot
 
 NEG_INF = -1e30
@@ -29,7 +36,7 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
+def init_cache(cfg, batch: int, max_len: int, dtype=None,
                device=None) -> KVCache:
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -70,18 +77,24 @@ def _flash_prefill_wanted(cfg, t: int, device: torch.device) -> bool:
 
 
 def _layer_step(cfg, x, lw, layer_cache_k, layer_cache_v, start: int,
-                freqs_full, flash_prefill: bool = False) -> torch.Tensor:
-    """One dense layer over T new tokens at absolute positions
+                freqs_full, flash_prefill: bool = False, token_mask=None,
+                keep_capacity=None, lora=None,
+                moe_no_drop: bool = False) -> torch.Tensor:
+    """One layer over T new tokens at absolute positions
     ``start .. start+T-1``; writes their K/V rows into this layer's cache
     (B, S_max, NKV, Hd) in place and returns the new hidden states. ``lw``
-    may hold quantized leaves, dequantized here, one layer at a time."""
+    may hold quantized leaves, dequantized here, one layer at a time.
+    ``lora``: None, or (adapters_by_target, scale) with this layer's
+    factors (``models.lora.lora_proj``), applied to wq/wk/wv/wo as the
+    engine's decode layers apply them. ``token_mask``, ``keep_capacity``
+    and ``moe_no_drop`` reach an MoE layer's routing (``ffn_block``)."""
     lw = dequant_layer(lw, cfg.dtype)
     b, t, _ = x.shape
     hd = cfg.head_dim
     h = rmsnorm(x, lw["attn_norm"], cfg.norm_eps)
-    q = wdot(h, lw["wq"]).reshape(b, t, cfg.n_heads, hd)
-    k = wdot(h, lw["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
-    v = wdot(h, lw["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+    q = lora_proj(h, lw["wq"], lora, "wq").reshape(b, t, cfg.n_heads, hd)
+    k = lora_proj(h, lw["wk"], lora, "wk").reshape(b, t, cfg.n_kv_heads, hd)
+    v = lora_proj(h, lw["wv"], lora, "wv").reshape(b, t, cfg.n_kv_heads, hd)
     freqs = freqs_full[start:start + t]
     q, k = apply_rope(q, freqs), apply_rope(k, freqs)
     layer_cache_k[:, start:start + t] = k.to(layer_cache_k.dtype)
@@ -93,22 +106,37 @@ def _layer_step(cfg, x, lw, layer_cache_k, layer_cache_v, start: int,
         q_pos = torch.arange(start, start + t, device=x.device)
         attn = _cached_attention(q, layer_cache_k, layer_cache_v, q_pos,
                                  hd ** -0.5)
-    x = x + wdot(attn.reshape(b, t, -1), lw["wo"])
+    x = x + lora_proj(attn.reshape(b, t, -1), lw["wo"], lora, "wo")
     h = rmsnorm(x, lw["ffn_norm"], cfg.norm_eps)
-    return x + ffn_block(cfg, h, lw)
+    return x + ffn_block(cfg, h, lw, token_mask=token_mask,
+                         keep_capacity=keep_capacity, moe_no_drop=moe_no_drop)
 
 
-def ffn_block(cfg, h: torch.Tensor, lw: Dict[str, Any]) -> torch.Tensor:
-    """Post-norm dense SwiGLU FFN, shared by ``generate`` and the engine."""
+def ffn_block(cfg, h: torch.Tensor, lw: Dict[str, Any], token_mask=None,
+              keep_capacity=None, moe_no_drop: bool = False) -> torch.Tensor:
+    """Post-norm FFN, shared by ``generate`` and the engine: the dense
+    SwiGLU, or the MoE layer when ``lw`` carries a ``router`` leaf.
+
+    MoE: a true decode step (T == 1, where no pair can overflow, so both
+    forms are equal) gathers just the K chosen experts' weights per token
+    when that moves less weight than streaming all E experts, 2·B·K <= E
+    (the gather writes its copies and reads them again); everything else
+    takes the capacity-buffer dispatch, whose drops match training. With
+    no mesh in the port, the expert axis always has size 1."""
     if "router" in lw:
-        raise NotImplementedError("MoE layers are not ported")
+        b, t = h.shape[0], h.shape[1]
+        if (t == 1 and cfg.decode_gather_ffn
+                and 2 * b * cfg.experts_per_token <= cfg.n_experts):
+            return moe_ffn_decode(cfg, h, lw)
+        return _moe_dispatch(cfg, h, lw, token_mask, keep_capacity,
+                             moe_no_drop)[0]
     return wdot(torch.nn.functional.silu(wdot(h, lw["w_gate"]))
                 * wdot(h, lw["w_up"]), lw["w_down"])
 
 
 @torch.no_grad()
 def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache,
-                       start_pos: int, cfg: LlamaConfig):
+                       start_pos: int, cfg):
     """Run T new tokens at absolute position ``start_pos``; returns fp32
     logits for the LAST position and the cache (updated in place)."""
     b, t = tokens.shape
@@ -165,12 +193,12 @@ def sample_logits(logits: torch.Tensor, temperature: float,
 
 
 @torch.no_grad()
-def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int = 64,
+def generate(params, prompt, cfg, max_new_tokens: int = 64,
              temperature: float = 0.0, top_k: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
              top_p: Optional[float] = None, device=None) -> torch.Tensor:
-    """Greedy (temperature=0) or sampled generation. prompt: (B, T) ints →
-    (B, T + max_new_tokens). A tensor prompt runs on its own device; any
+    """Greedy (temperature=0) or sampled generation over a ``LlamaConfig``
+    or ``MoeConfig`` tree. prompt: (B, T) ints → (B, T + max_new_tokens). A tensor prompt runs on its own device; any
     other prompt goes to ``device`` (``cuda`` unless named)."""
     if not isinstance(prompt, torch.Tensor):
         prompt = torch.as_tensor(prompt, device=resolve_device(device))

@@ -128,7 +128,8 @@ def rope_freqs(cfg: LlamaConfig, seq_len: int, device=None) -> torch.Tensor:
     inv = 1.0 / (cfg.rope_theta ** (
         torch.arange(0, cfg.head_dim, 2, dtype=torch.float32, device=device)
         / cfg.head_dim))
-    rs = cfg.rope_scaling
+    # getattr: MoeConfig (models/moe.py) has no rope_scaling field
+    rs = getattr(cfg, "rope_scaling", None)
     if rs is not None:
         # Llama-3.1 long-context scaling: wavelengths longer than the
         # original training context are slowed by ``factor``, short ones

@@ -1,0 +1,129 @@
+"""LoRA adapters for serving, the counterpart of
+``kubetorch_tpu/models/lora.py``.
+
+An adapter holds per-target low-rank factors ``W' = W + (α/r)·A·B``: for a
+target ``t`` of shape (L, d_in, d_out), ``t__a`` (L, d_in, r) and ``t__b``
+(L, r, d_out), stacked over layers like the base params. ``merge_lora``
+folds them into the weights (fp32 delta, cast back); the engine instead
+applies them on the activation path, ``x·W + s·(x·A)·B`` with the product
+in fp32 (``lora_delta``), so different slots run different adapters
+through one decode step (``serve.engine``). Zero factors add exactly 0.0,
+which keeps base traffic beside adapters bit-identical.
+
+Not ported here: ``lora_loss`` (training).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from .quant import is_quantized, wdot
+
+
+@dataclass(frozen=True)
+class LoraConfig:
+    rank: int = 8
+    alpha: float = 16.0
+    # layer-dict leaves to adapt; attention projections by default, present
+    # in both the dense and the MoE family (expert banks stay frozen)
+    targets: Tuple[str, ...] = ("wq", "wk", "wv", "wo")
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+def lora_init(params: Dict[str, Any], lora_cfg: LoraConfig,
+              seed: int = 0) -> Dict[str, Any]:
+    """Adapter tree shaped off the base params, on their device: per target
+    ``t`` of shape (L, d_in, d_out), ``t__a`` ~ N(0, 1/d_in) drawn in fp32
+    from a ``torch.Generator`` seeded with ``seed``, and ``t__b`` = 0, so
+    the merged model starts exactly at the base."""
+    layers = params["layers"]
+    out: Dict[str, torch.Tensor] = {}
+    gen = None
+    for t in lora_cfg.targets:
+        if t not in layers:
+            raise KeyError(f"LoRA target {t!r} not in params['layers'] "
+                           f"(have {sorted(layers)})")
+        w = layers[t]
+        if is_quantized(w):
+            raise ValueError(
+                f"LoRA target {t!r} is int8-quantized — train on the "
+                "full-precision base and quantize AFTER merging")
+        if gen is None:
+            gen = torch.Generator(device=w.device)
+            gen.manual_seed(int(seed))
+        l, d_in, d_out = w.shape
+        a = torch.randn((l, d_in, lora_cfg.rank), generator=gen,
+                        device=w.device, dtype=torch.float32)
+        out[f"{t}__a"] = a.mul_(1.0 / math.sqrt(d_in)).to(w.dtype)
+        out[f"{t}__b"] = torch.zeros((l, lora_cfg.rank, d_out), dtype=w.dtype,
+                                     device=w.device)
+    return {"layers": out}
+
+
+def merge_lora(params: Dict[str, Any], adapters: Dict[str, Any],
+               lora_cfg: LoraConfig) -> Dict[str, Any]:
+    """``W + (α/r)·A·B`` per target, in fp32 and cast back to W's type;
+    every other leaf is shared with the base tree (no copy)."""
+    merged_layers = dict(params["layers"])
+    for t in lora_cfg.targets:
+        a = adapters["layers"][f"{t}__a"]
+        b = adapters["layers"][f"{t}__b"]
+        w = params["layers"][t]
+        delta = torch.bmm(a.float(), b.float()) * lora_cfg.scale
+        merged_layers[t] = (w.float() + delta).to(w.dtype)
+    return {**params, "layers": merged_layers}
+
+
+def adapter_count(adapters: Dict[str, Any]) -> int:
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        return tree.numel()
+    return count(adapters)
+
+
+def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """The activation-path contribution ``((x·A)·B)·scale`` in fp32, cast
+    to x's type. x: (B, T, D); a/b shared across the batch (2-D: (D, R)/
+    (R, O), one request's prefill) or per slot (3-D: (B, D, R)/(B, R, O),
+    the decode grid)."""
+    xf = x.float()
+    if a.dim() == 2:
+        out = (xf @ a.float()) @ b.float()
+    else:
+        out = torch.bmm(torch.bmm(xf, a.float()), b.float())
+    return (out * scale).to(x.dtype)
+
+
+def lora_proj(x: torch.Tensor, w: Any, lora, target: str) -> torch.Tensor:
+    """``x @ W`` plus the adapter delta when ``lora`` carries this target.
+    ``lora``: None, or (adapters_by_target, scale), adapters_by_target
+    mapping target → (a, b) in either ``lora_delta`` layout. ``w`` may be
+    a packed-int4 leaf (``quant.wdot`` takes it to the int4 kernel)."""
+    y = wdot(x, w)
+    if lora is not None:
+        by_target, scale = lora
+        ab = by_target.get(target)
+        if ab is not None:
+            y = y + lora_delta(x, ab[0], ab[1], scale)
+    return y
+
+
+def gather_slot_adapters(bank_l, aidx, lora_scale, banks):
+    """The per-slot multi-LoRA gather: ``bank_l`` maps target → (A (N,
+    ..., D, R), B (N, ..., R, O)) stacked factors, ``aidx`` (SLOTS,) the
+    per-slot bank indices (0 = the zero adapter = base). Returns a
+    ``lora_proj``-shaped (adapters_by_target, scale), or None when no bank
+    exists."""
+    if banks:
+        return ({t: (a[aidx], b_[aidx])
+                 for t, (a, b_) in bank_l.items()}, lora_scale)
+    return None

@@ -64,7 +64,13 @@ def dequant(leaf: Any, dtype=torch.bfloat16) -> Any:
     if isinstance(leaf, dict) and Q4KEY in leaf:
         return _dequant_int4(leaf, dtype)
     if is_quantized(leaf):
-        return (leaf[QKEY].float() * leaf["scale"]).to(dtype)
+        # the fp32 products of the int8 values and scales, rounded to
+        # ``dtype`` as they are written: one pass over the int8 values, the
+        # same bits as converting to fp32, multiplying and casting
+        q, scale = leaf[QKEY], leaf["scale"]
+        out = torch.empty(torch.broadcast_shapes(q.shape, scale.shape),
+                          dtype=dtype, device=q.device)
+        return torch.mul(q, scale, out=out)
     return leaf
 
 

@@ -55,9 +55,28 @@
   penalty or a zero bias mask, so an unpenalized neighbour's tokens are
   bit-identical to a run without penalized ones.
 
+- **MoE.** An MoE tree (``models.moe``, e.g. Mixtral-8x7B with int8
+  expert banks beside int4 attention) serves through the same passes.
+  Padding never routes: a prefill passes a mask of its real tokens and
+  the real length's capacity as the overflow threshold, so a prompt
+  routes alike at any bucket. A prefix hit and each prefill chunk route
+  their own segment (capacity per segment), as in the JAX engine. Decode
+  steps take the K-expert gather when 2·SLOTS·K <= E, else the dispatch.
+- **Multi-LoRA.** ``register_adapter`` stacks adapters into one bank per
+  target, (L, N, D, R) and (L, N, R, O), index 0 the zero adapter. A
+  request's ``adapter_id`` runs its prefill through its factors and
+  points its slot at its bank index; each decode step gathers every
+  slot's factors once and adds ``s·(x·A)·B`` (fp32) to wq/wk/wv/wo, so
+  base traffic (index 0) stays bit-identical to an engine without banks.
+  An engine without banks skips the gather. Registration and
+  ``unregister_adapter`` build new bank tensors under the engine's lock
+  and never write one a step may be reading; an unregistered adapter's
+  decoding slots fall back to the base model. Prefixes are keyed by the
+  adapter they were computed through.
+
 Not ported yet, and raising ``NotImplementedError`` rather than being
-ignored: ``aot_cache``, a device mesh (so neither the sharded int8
-decode) and LoRA adapters; MoE layers raise in the model code.
+ignored: ``aot_cache`` and a device mesh (so neither the sharded int8
+decode).
 """
 
 from __future__ import annotations
@@ -78,7 +97,9 @@ from ..models.common import resolve_device
 from ..models.generate import (_flash_prefill_wanted, _layer_step, ffn_block,
                                filter_logits, init_cache)
 from ..models.llama import _rotate, layer_weights, rmsnorm, rope_freqs
-from ..models.quant import dequant_layer, is_quantized, lm_head_dot, wdot
+from ..models.lora import gather_slot_adapters, lora_proj
+from ..models.moe import moe_prefill_keep_capacity
+from ..models.quant import dequant_layer, is_quantized, lm_head_dot
 from ..ops.decode_attention import (decode_attention, decode_attention_quant,
                                     decode_attention_quant_ref,
                                     decode_attention_ref)
@@ -95,33 +116,38 @@ def _rope_slot(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     return _rotate(x, freqs[:, None, :])
 
 
-def _decode_qkv(cfg, x, lw, freqs):
+def _decode_qkv(cfg, x, lw, freqs, lora=None):
     """The projections of one new token per slot, RoPE applied: q (B, NH,
-    Hd), k and v (B, NKV, Hd). Shared by both cache layouts."""
+    Hd), k and v (B, NKV, Hd). ``lora``: None, or each slot's adapter
+    factors, (B, D, R)/(B, R, O) per target. Shared by both cache
+    layouts."""
     b = x.shape[0]
     hd = cfg.head_dim
     h = rmsnorm(x, lw["attn_norm"], cfg.norm_eps)
-    q = wdot(h, lw["wq"]).reshape(b, cfg.n_heads, hd)
-    k = wdot(h, lw["wk"]).reshape(b, cfg.n_kv_heads, hd)
-    v = wdot(h, lw["wv"]).reshape(b, cfg.n_kv_heads, hd)
+    q = lora_proj(h, lw["wq"], lora, "wq").reshape(b, cfg.n_heads, hd)
+    k = lora_proj(h, lw["wk"], lora, "wk").reshape(b, cfg.n_kv_heads, hd)
+    v = lora_proj(h, lw["wv"], lora, "wv").reshape(b, cfg.n_kv_heads, hd)
     return _rope_slot(q, freqs), _rope_slot(k, freqs), v
 
 
-def _decode_out(cfg, x, lw, attn) -> torch.Tensor:
-    """Output projection of attention (B, NH, Hd) and the FFN, residuals
-    included. Shared by both cache layouts."""
-    x = x + wdot(attn.reshape(x.shape[0], 1, -1).to(x.dtype), lw["wo"])
+def _decode_out(cfg, x, lw, attn, lora=None) -> torch.Tensor:
+    """Output projection of attention (B, NH, Hd) and the FFN (dense, or
+    the MoE layer at T == 1), residuals included. Shared by both cache
+    layouts."""
+    x = x + lora_proj(attn.reshape(x.shape[0], 1, -1).to(x.dtype), lw["wo"],
+                      lora, "wo")
     h = rmsnorm(x, lw["ffn_norm"], cfg.norm_eps)
     return x + ffn_block(cfg, h, lw)
 
 
-def _decode_layer(cfg, x, lw, ck, cv, pos, pos_idx, freqs) -> torch.Tensor:
+def _decode_layer(cfg, x, lw, ck, cv, pos, pos_idx, freqs,
+                  lora=None) -> torch.Tensor:
     """One layer over one new token per slot. x: (B, 1, D); ck/cv: this
     layer's (B, S, NKV, Hd) cache, written in place at each slot's row;
     pos: (B,) int32 row of each slot's new token (``pos_idx`` the same as
     int64 for indexing); freqs: (B, Hd/2). ``lw`` is dequantized already
     (:func:`_decode_step_impl`)."""
-    q, k, v = _decode_qkv(cfg, x, lw, freqs)
+    q, k, v = _decode_qkv(cfg, x, lw, freqs, lora)
     bi = torch.arange(x.shape[0], device=x.device)
     ck[bi, pos_idx] = k.to(ck.dtype)
     cv[bi, pos_idx] = v.to(cv.dtype)
@@ -129,16 +155,16 @@ def _decode_layer(cfg, x, lw, ck, cv, pos, pos_idx, freqs) -> torch.Tensor:
     # wrapper (the kernel on CUDA, the same einsum on the CPU)
     attend = decode_attention_ref if cfg.attn_impl == "xla" else decode_attention
     return _decode_out(cfg, x, lw, attend(q, ck, cv, pos,
-                                          scale=cfg.head_dim ** -0.5))
+                                          scale=cfg.head_dim ** -0.5), lora)
 
 
 def _decode_layer_quant(cfg, x, lw, kq, ks, vq, vs, pos, pos_idx,
-                        freqs) -> torch.Tensor:
+                        freqs, lora=None) -> torch.Tensor:
     """:func:`_decode_layer` against an int8 cache (``serve.kv_quant``):
     the new row is quantized before it is written (kq/vq (B, S, NKV, Hd)
     int8, ks/vs (B, S, NKV) fp32, this layer's slices, in place), and
     attention folds the row scales in instead of materializing fp rows."""
-    q, k, v = _decode_qkv(cfg, x, lw, freqs)
+    q, k, v = _decode_qkv(cfg, x, lw, freqs, lora)
     bi = torch.arange(x.shape[0], device=x.device)
     kq[bi, pos_idx], ks[bi, pos_idx] = quantize_rows(k)
     vq[bi, pos_idx], vs[bi, pos_idx] = quantize_rows(v)
@@ -147,7 +173,7 @@ def _decode_layer_quant(cfg, x, lw, kq, ks, vq, vs, pos, pos_idx,
     attend = (decode_attention_quant_ref if cfg.attn_impl == "xla"
               else decode_attention_quant)
     return _decode_out(cfg, x, lw, attend(q, kq, ks, vq, vs, pos,
-                                          scale=cfg.head_dim ** -0.5))
+                                          scale=cfg.head_dim ** -0.5), lora)
 
 
 def _sample_slots(logits, temps: np.ndarray, top_k: Optional[int],
@@ -177,12 +203,16 @@ def _sample_slots(logits, temps: np.ndarray, top_k: Optional[int],
     return tok, logp.gather(-1, tok[:, None])[:, 0]
 
 
-def _decode_step_impl(params, cache, pos, toks, cfg, freqs_table):
+def _decode_step_impl(params, cache, pos, toks, cfg, freqs_table,
+                      banks=None, aidx=None, lora_scale: float = 1.0):
     """Single-step decode math for every slot: returns (B, V) fp32 logits
     and writes each slot's new K/V row. ``cache`` is a ``KVCache`` or an
     int8 ``QuantKVCache``. ``pos`` (B,) int32 on the device; positions past
     the grid clamp to its last row (module docstring), in every tensor of
-    either cache."""
+    either cache. ``banks`` (target → (A (L, N, D, R), B (L, N, R, O)))
+    with ``aidx`` (B,) int64 on the device select each slot's adapter
+    (index 0 = the zero adapter = base); they are gathered once for every
+    layer."""
     quant = isinstance(cache, QuantKVCache)
     s_max = (cache.kq if quant else cache.k).shape[2]
     pos = pos.clamp(max=s_max - 1)
@@ -191,24 +221,33 @@ def _decode_step_impl(params, cache, pos, toks, cfg, freqs_table):
     freqs = freqs_table[pos_idx]                               # (B, Hd/2)
     # decided once per tree: a plain tree skips the per-layer dequant walk
     quant_w = any(is_quantized(w) for w in params["layers"].values())
+    # each slot's factors of every layer, (B, L, D, R) and (B, L, R, O)
+    slot_lora = gather_slot_adapters(
+        {t: (a.transpose(0, 1), b.transpose(0, 1))
+         for t, (a, b) in (banks or {}).items()}, aidx, lora_scale, banks)
     for i in range(cfg.n_layers):
         lw = layer_weights(params, i)
         if quant_w:
             lw = dequant_layer(lw, cfg.dtype)
+        lora = None
+        if slot_lora is not None:
+            lora = ({t: (a[:, i], b[:, i])
+                     for t, (a, b) in slot_lora[0].items()}, lora_scale)
         if quant:
             x = _decode_layer_quant(cfg, x, lw, cache.kq[i], cache.ks[i],
                                     cache.vq[i], cache.vs[i], pos, pos_idx,
-                                    freqs)
+                                    freqs, lora)
         else:
             x = _decode_layer(cfg, x, lw, cache.k[i], cache.v[i], pos,
-                              pos_idx, freqs)
+                              pos_idx, freqs, lora)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_head_dot(x[:, 0], params, cfg.dtype)
 
 
 def _decode_block(params, cache, pos, toks, cfg, freqs_table,
                   n_steps: int, temps, top_k, top_ps, gens, counts=None,
-                  fpen=None, ppen=None, bias=None, bmask=None):
+                  fpen=None, ppen=None, bias=None, bmask=None, banks=None,
+                  aidx=None, lora_scale: float = 1.0):
     """Advance every slot ``n_steps`` tokens. pos (B,) int32 and toks (B,)
     int64 on the device. ``counts`` (B, V) int32 with ``fpen``/``ppen``
     (B,) fp32: OpenAI repetition penalties, ``fpen·counts + ppen·(counts >
@@ -216,12 +255,14 @@ def _decode_block(params, cache, pos, toks, cfg, freqs_table,
     (B,): each slot's logit_bias, added where its mask is 1. A zero
     penalty or mask multiplies a stale row by 0, so unpenalized slots see
     their logits unchanged. After each inner step ``counts`` gains the
-    sampled tokens, in place on the device. Returns (tokens (K, B),
-    logprobs (K, B))."""
+    sampled tokens, in place on the device. ``banks``/``aidx``/
+    ``lora_scale``: the slots' adapters (:func:`_decode_step_impl`).
+    Returns (tokens (K, B), logprobs (K, B))."""
     toks_k, lps_k = [], []
     slot_idx = torch.arange(toks.shape[0], device=toks.device)
     for _ in range(n_steps):
-        raw = _decode_step_impl(params, cache, pos, toks, cfg, freqs_table)
+        raw = _decode_step_impl(params, cache, pos, toks, cfg, freqs_table,
+                                banks, aidx, lora_scale)
         logits = raw
         if counts is not None:
             logits = logits - (fpen[:, None] * counts.float()
@@ -238,19 +279,43 @@ def _decode_block(params, cache, pos, toks, cfg, freqs_table,
     return torch.stack(toks_k), torch.stack(lps_k)
 
 
-def _prefill_logits(params, tokens, true_len: int, cfg, freqs_table):
+def _routing(cfg, t: int, true_len: int, device):
+    """An MoE prefill's routing arguments for ``true_len`` real tokens in a
+    T-row pass: the mask of real rows (1, T) and the real length's
+    capacity; empty for a dense config."""
+    keep = moe_prefill_keep_capacity(cfg, true_len)
+    if keep is None:
+        return {}
+    mask = (torch.arange(t, device=device) < true_len)[None, :]
+    return dict(token_mask=mask, keep_capacity=keep)
+
+
+def _layer_lora(adapter, i: int, lora_scale: float):
+    """Layer ``i``'s slice of a request's adapter (target → (A (L, D, R),
+    B (L, R, O))) in ``lora_proj``'s form, or None."""
+    if not adapter:
+        return None
+    return {t: (a[i], b[i]) for t, (a, b) in adapter.items()}, lora_scale
+
+
+def _prefill_logits(params, tokens, true_len: int, cfg, freqs_table,
+                    adapter=None, lora_scale: float = 1.0):
     """Prompt pass at one bucket length. tokens (1, T_bucket) right-padded;
     logits (1, V) fp32 are taken at the real last position ``true_len - 1``
     (padding rows only pollute their own cache rows, which decode
-    overwrites before attending to them). Returns (logits, k, v) with k/v
-    (L, 1, T_bucket, NKV, Hd)."""
+    overwrites before attending to them, and never claim an MoE capacity
+    slot). ``adapter`` (target → (A (L, D, R), B (L, R, O))) runs the pass
+    through one LoRA adapter. Returns (logits, k, v) with k/v (L, 1,
+    T_bucket, NKV, Hd)."""
     b, t = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
     flash = _flash_prefill_wanted(cfg, t, tokens.device)
     cache = init_cache(cfg, b, t, device=tokens.device)
+    route = _routing(cfg, t, true_len, tokens.device)
     for i in range(cfg.n_layers):
         x = _layer_step(cfg, x, layer_weights(params, i), cache.k[i],
-                        cache.v[i], 0, freqs_table, flash_prefill=flash)
+                        cache.v[i], 0, freqs_table, flash_prefill=flash,
+                        lora=_layer_lora(adapter, i, lora_scale), **route)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_head_dot(x[:, true_len - 1], params, cfg.dtype), cache.k, cache.v
 
@@ -263,7 +328,8 @@ def _zero_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _prefill_suffix_logits(params, tokens, true_len: int, prefix_k,
-                           prefix_v, prefix_len: int, cfg, freqs_table):
+                           prefix_v, prefix_len: int, cfg, freqs_table,
+                           adapter=None, lora_scale: float = 1.0):
     """Suffix prompt pass behind cached rows: tokens (1, T_bucket)
     right-padded run at absolute positions ``prefix_len + i`` and attend
     the first ``prefix_len`` rows of ``prefix_k``/``prefix_v`` (L, 1,
@@ -275,34 +341,41 @@ def _prefill_suffix_logits(params, tokens, true_len: int, prefix_k,
     Returns (logits (1, V) at the suffix's real last token, k, v) with k/v
     (L, 1, P_bucket + T_bucket, NKV, Hd), ready to splice into a slot.
     Exact for dense models: the same math as a from-zero prefill of prefix
-    and suffix together."""
+    and suffix together. An MoE suffix routes on its own (capacity per
+    segment): equal to the whole prompt's pass whenever no expert
+    overflows."""
     t = tokens.shape[1]
     ck, cv = _zero_rows(prefix_k, t), _zero_rows(prefix_v, t)
     x = params["embed"][tokens].to(cfg.dtype)
+    route = _routing(cfg, t, true_len, tokens.device)
     for i in range(cfg.n_layers):
         x = _layer_step(cfg, x, layer_weights(params, i), ck[i], cv[i],
-                        prefix_len, freqs_table)
+                        prefix_len, freqs_table,
+                        lora=_layer_lora(adapter, i, lora_scale), **route)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_head_dot(x[:, true_len - 1], params, cfg.dtype), ck, cv
 
 
 def _prefill(params, tokens, true_len: int, cfg, freqs_table,
-             samp: "_Sampling"):
-    """:func:`_prefill_logits`, then the first token sampled
-    (:func:`_sample_first`). Returns (first (1,), k, v, logprob (1,))."""
-    logits, k, v = _prefill_logits(params, tokens, true_len, cfg, freqs_table)
+             samp: "_Sampling", **lkw):
+    """:func:`_prefill_logits` (``lkw``: its adapter arguments), then the
+    first token sampled (:func:`_sample_first`). Returns (first (1,), k,
+    v, logprob (1,))."""
+    logits, k, v = _prefill_logits(params, tokens, true_len, cfg, freqs_table,
+                                   **lkw)
     first, lp = _sample_first(logits, samp)
     return first, k, v, lp
 
 
 def _prefill_suffix(params, tokens, true_len: int, prefix_k, prefix_v,
-                    prefix_len: int, cfg, freqs_table, samp: "_Sampling"):
-    """:func:`_prefill_suffix_logits`, then the first token sampled
-    (:func:`_sample_first`). Returns (first (1,), k, v, logprob (1,)), k/v
-    over P_bucket + T_bucket rows."""
+                    prefix_len: int, cfg, freqs_table, samp: "_Sampling",
+                    **lkw):
+    """:func:`_prefill_suffix_logits` (``lkw``: its adapter arguments),
+    then the first token sampled (:func:`_sample_first`). Returns (first
+    (1,), k, v, logprob (1,)), k/v over P_bucket + T_bucket rows."""
     logits, k, v = _prefill_suffix_logits(params, tokens, true_len, prefix_k,
                                           prefix_v, prefix_len, cfg,
-                                          freqs_table)
+                                          freqs_table, **lkw)
     first, lp = _sample_first(logits, samp)
     return first, k, v, lp
 
@@ -366,6 +439,7 @@ class _Request:
     seed: Optional[int] = None               # reproducible sampling stream
     stop: tuple = ()                         # stop token-id sequences
     prefix_id: Optional[int] = None          # cached shared-prefix K/V
+    adapter_id: Optional[int] = None         # registered LoRA adapter
     full_prompt: Optional[List[int]] = None  # pre-strip prompt (auto match)
     cancelled: bool = False                  # reaped at the next step
     error: Optional[BaseException] = None    # admission failure, surfaced
@@ -380,18 +454,22 @@ class _Request:
 class _Prefix(NamedTuple):
     """A registered prefix: K/V rows (L, 1, P_store, NKV, Hd) in the model
     dtype, padded to a bucket (or trimmed to the exact length where no
-    bucket leaves room under max_len), its true length and its tokens."""
+    bucket leaves room under max_len), its true length, its tokens and the
+    adapter it was computed through (None for the base model)."""
     k: torch.Tensor
     v: torch.Tensor
     length: int
     tokens: tuple
+    adapter_id: Optional[int]
 
 
 @dataclass
 class _Chunking:
     """The one chunked admission in flight: its reserved slot, the K/V
     accumulator (L, 1, max_len, NKV, Hd), the prompt tokens consumed so far,
-    the next absolute position, and the cached prefix's tokens if any."""
+    the next absolute position, the cached prefix's tokens if any, and the
+    request's adapter arguments and bank index, resolved once at the first
+    chunk."""
     req: "_Request"
     slot: int
     k: torch.Tensor
@@ -399,6 +477,8 @@ class _Chunking:
     consumed: int
     frontier: int
     prefix_tokens: Optional[tuple]
+    lkw: dict
+    aidx: int
 
 
 @dataclass
@@ -502,6 +582,14 @@ class EngineStats:
     ttft_avg: float = 0.0
 
 
+def _with_index(bank: torch.Tensor, idx: int, value) -> torch.Tensor:
+    """A new bank tensor (L, N, ...) equal to ``bank`` with index ``idx``
+    of its second axis set to ``value``."""
+    out = bank.clone()
+    out[:, idx] = value
+    return out
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the PyTorch engine")
 
@@ -511,9 +599,9 @@ class GenerationEngine:
     has the design). Drive it with :meth:`step` (deterministic) or start
     the background loop with :meth:`start`.
 
-    ``params`` is the stacked Llama param dict (``models.llama``), plain
-    or quantized (``models.quant``), on ``device`` — ``cuda`` unless the
-    caller names another. ``eos_id`` retires a slot early; ``max_len``
+    ``params`` is the stacked param dict of a Llama (``models.llama``) or
+    an MoE (``models.moe``) config, plain or quantized (``models.quant``),
+    on ``device`` — ``cuda`` unless the caller names another. ``eos_id`` retires a slot early; ``max_len``
     caps prompt + completion; ``quantize_kv=True`` keeps the KV grid in
     int8 (``serve.kv_quant``); ``auto_prefix=True`` reuses registered
     prefixes without an id; ``prefill_chunk=C`` admits prompts longer than
@@ -595,6 +683,15 @@ class GenerationEngine:
         # prompt starts with, no prefix_id needed
         self.auto_prefix = bool(auto_prefix)
         self._prefix_hits = 0
+        # multi-LoRA: stacked adapter banks, target → (A (L, N, D, R),
+        # B (L, N, R, O)); bank index 0 is the all-zero adapter (= base
+        # model), which idle and base-traffic slots point at
+        self._lora_cfg = None
+        self._banks: Optional[Dict[str, tuple]] = None
+        self._adapter_slots: Dict[int, int] = {}   # public id → bank index
+        self._free_bank: List[int] = []
+        self._adapter_ids = itertools.count(1)
+        self._aidx = np.zeros(self.slots, np.int64)
         # seeds for requests that bring none (drawn under _lock)
         self._seed_rng = np.random.default_rng(seed)
         self._rid = itertools.count()
@@ -610,10 +707,100 @@ class GenerationEngine:
         self._ttfts = deque(maxlen=256)
         self._t0 = time.monotonic()
 
-    # -- not ported ---------------------------------------------------------
+    # -- adapters -----------------------------------------------------------
 
-    def register_adapter(self, adapters, lora_cfg) -> int:
-        raise _not_ported("LoRA adapter serving")
+    def register_adapter(self, adapters: Dict[str, Any], lora_cfg) -> int:
+        """Install a LoRA adapter (``models.lora.lora_init`` layout: a
+        ``layers`` dict of per-target stacked ``{t}__a`` (L, D, R) and
+        ``{t}__b`` (L, R, O) factors) for unmerged activation-path serving:
+        requests submitted with the returned id run ``x·W + s·(x·A)·B``
+        through the decode step every other adapter and the base model
+        share. All adapters on one engine share the first registration's
+        rank, targets and scale; a freed bank index is reused."""
+        layers = adapters.get("layers", adapters)
+        served = {"wq", "wk", "wv", "wo"}
+        extra = set(lora_cfg.targets) - served
+        if extra:
+            # merge_lora adapts any layer leaf, but the serving path applies
+            # lora_proj only at the attention projections
+            raise ValueError(
+                f"activation-path serving supports targets {sorted(served)}; "
+                f"got {sorted(extra)} — serve those via merge_lora instead")
+        pairs = {}
+        for t in lora_cfg.targets:
+            try:
+                pairs[t] = (torch.as_tensor(layers[f"{t}__a"], device=self.device),
+                            torch.as_tensor(layers[f"{t}__b"], device=self.device))
+            except KeyError:
+                raise KeyError(
+                    f"adapter missing factors for target {t!r} "
+                    f"(have {sorted(layers)})") from None
+        with self._lock:
+            # the config check under the lock: two racing first
+            # registrations must not both pass the None check
+            if self._lora_cfg is not None and (
+                    lora_cfg.rank != self._lora_cfg.rank
+                    or tuple(lora_cfg.targets) != tuple(self._lora_cfg.targets)
+                    or lora_cfg.scale != self._lora_cfg.scale):
+                raise ValueError(
+                    f"adapter config {lora_cfg} does not match the engine's "
+                    f"existing bank config {self._lora_cfg} (one bank per "
+                    "engine: rank/targets/scale must agree)")
+            self._lora_cfg = self._lora_cfg or lora_cfg
+            # new bank tensors every time: a step that took the old ones
+            # under the lock keeps reading them unchanged
+            if self._banks is None:
+                self._banks = {
+                    t: (torch.stack([torch.zeros_like(a), a], dim=1),
+                        torch.stack([torch.zeros_like(b), b], dim=1))
+                    for t, (a, b) in pairs.items()}
+                idx = 1
+            elif self._free_bank:
+                idx = self._free_bank.pop()
+                self._banks = {
+                    t: (_with_index(A, idx, pairs[t][0]),
+                        _with_index(B, idx, pairs[t][1]))
+                    for t, (A, B) in self._banks.items()}
+            else:
+                idx = next(iter(self._banks.values()))[0].shape[1]
+                self._banks = {
+                    t: (torch.cat([A, pairs[t][0][:, None].to(A.dtype)], dim=1),
+                        torch.cat([B, pairs[t][1][:, None].to(B.dtype)], dim=1))
+                    for t, (A, B) in self._banks.items()}
+            aid = next(self._adapter_ids)
+            self._adapter_slots[aid] = idx
+        return aid
+
+    def unregister_adapter(self, adapter_id: int) -> bool:
+        """Free an adapter's bank index (reused by the next registration).
+        Its factors are zeroed and any request still decoding on it is
+        repointed at index 0, so it falls back to the base model
+        mid-stream, never onto the next tenant of the index. Queued
+        requests against the id fail at admission through their handle."""
+        with self._lock:
+            idx = self._adapter_slots.pop(adapter_id, None)
+            if idx is None:
+                return False
+            self._banks = {t: (_with_index(A, idx, 0.0),
+                               _with_index(B, idx, 0.0))
+                           for t, (A, B) in self._banks.items()}
+            self._aidx[self._aidx == idx] = 0
+            self._free_bank.append(idx)
+        return True
+
+    def _resolve_adapter(self, adapter_id: Optional[int]):
+        """(the prefill's adapter arguments, bank index) for a request or
+        a prefix: ``{}`` and 0 for the base model. Under the lock, so a
+        concurrent unregister cannot hand back a half-freed index."""
+        if adapter_id is None:
+            return {}, 0
+        with self._lock:
+            if adapter_id not in self._adapter_slots:
+                raise KeyError(f"unknown adapter_id {adapter_id}")
+            idx = self._adapter_slots[adapter_id]
+            banks = self._banks
+        adapter = {t: (A[:, idx], B[:, idx]) for t, (A, B) in banks.items()}
+        return dict(adapter=adapter, lora_scale=self._lora_cfg.scale), idx
 
     # -- submission ---------------------------------------------------------
 
@@ -647,9 +834,10 @@ class GenerationEngine:
         raw model's. ``stop`` is one token-id sequence or a list of them:
         the request retires once its generated tokens end with one (the
         matching tokens are emitted). ``seed`` fixes the request's sampling
-        stream."""
-        if adapter_id is not None:
-            raise _not_ported("LoRA adapter serving (adapter_id)")
+        stream. ``adapter_id`` (from :meth:`register_adapter`) runs this
+        request's prefill and every decode step through its LoRA adapter;
+        ``auto_prefix`` then matches only prefixes computed through the
+        same adapter."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -659,7 +847,7 @@ class GenerationEngine:
         self._check_vocab(prompt)
         full_prompt = None
         if prefix_id is None and self.auto_prefix:
-            prefix_id, stripped = self._match_prefix(prompt,
+            prefix_id, stripped = self._match_prefix(prompt, adapter_id,
                                                      int(max_new_tokens))
             if prefix_id is not None:
                 full_prompt, prompt = prompt, stripped
@@ -684,6 +872,8 @@ class GenerationEngine:
                 f"prefix bucket ({prefix_bucket}) + prompt ({len(prompt)}) "
                 f"+ max_new_tokens ({max_new_tokens}) exceeds the engine's "
                 f"max_len ({self.max_len})")
+        if adapter_id is not None and adapter_id not in self._adapter_slots:
+            raise KeyError(f"unknown adapter_id {adapter_id}")
         if top_p is not None and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if logit_bias:
@@ -706,7 +896,7 @@ class GenerationEngine:
                        presence_penalty=float(presence_penalty),
                        logit_bias=logit_bias or None,
                        stop=_normalize_stop(stop), prefix_id=prefix_id,
-                       full_prompt=full_prompt,
+                       adapter_id=adapter_id, full_prompt=full_prompt,
                        seed=None if seed is None else int(seed))
         with self._lock:
             self._pending.append(req)
@@ -719,9 +909,10 @@ class GenerationEngine:
                         adapter_id: Optional[int] = None) -> int:
         """Prefill a shared prefix (system prompt, few-shot header) once and
         cache its K/V; later :meth:`submit` calls with the returned id skip
-        recomputing it. Exact for dense models."""
-        if adapter_id is not None:
-            raise _not_ported("LoRA adapter serving (adapter_id)")
+        recomputing it. Exact for dense models; for MoE, expert capacity is
+        per segment (``_prefill_suffix_logits``). ``adapter_id`` computes
+        the prefix through that adapter: pair it with requests on the same
+        adapter."""
         tokens = [int(t) for t in tokens]
         if not tokens:
             raise ValueError("empty prefix")
@@ -729,11 +920,12 @@ class GenerationEngine:
             raise ValueError(f"prefix ({len(tokens)}) must leave room under "
                              f"max_len ({self.max_len})")
         self._check_vocab(tokens)
+        lkw, _ = self._resolve_adapter(adapter_id)
         t = len(tokens)
         bucket = next(b for b in self._buckets if b >= t)
         with torch.no_grad():
             _, k, v = _prefill_logits(self.params, self._padded(tokens, bucket),
-                                      t, self.cfg, self._freqs)
+                                      t, self.cfg, self._freqs, **lkw)
         # keep the bucketed rows (the suffix pass takes the true length as
         # an argument); where the bucket leaves no room for a one-token
         # suffix and one generated token under max_len, trim to the exact
@@ -743,20 +935,23 @@ class GenerationEngine:
         if store != bucket:
             k, v = k[:, :, :store].contiguous(), v[:, :, :store].contiguous()
         pid = next(self._prefix_ids)
-        self._prefixes[pid] = _Prefix(k, v, t, tuple(tokens))
+        self._prefixes[pid] = _Prefix(k, v, t, tuple(tokens), adapter_id)
         return pid
 
-    def _match_prefix(self, prompt: List[int], max_new_tokens: int):
+    def _match_prefix(self, prompt: List[int], adapter_id: Optional[int],
+                      max_new_tokens: int):
         """Longest registered prefix this prompt starts with (auto_prefix):
-        (prefix_id, suffix) or (None, prompt). A candidate must leave a
-        non-empty suffix and fit its bucket, the suffix and the budget
-        under max_len."""
+        (prefix_id, suffix) or (None, prompt). A candidate must have been
+        computed through the same adapter (its rows are that adapter's),
+        leave a non-empty suffix and fit its bucket, the suffix and the
+        budget under max_len."""
         with self._lock:
             items = list(self._prefixes.items())
         best = None
         for pid, pref in items:
             n = len(pref.tokens)
-            if (n < len(prompt) and (best is None or n > best[1])
+            if (pref.adapter_id == adapter_id and n < len(prompt)
+                    and (best is None or n > best[1])
                     and pref.k.shape[2] + (len(prompt) - n)
                     + max_new_tokens <= self.max_len
                     and list(pref.tokens) == prompt[:n]):
@@ -814,6 +1009,7 @@ class GenerationEngine:
         self._fpen[slot] = 0.0
         self._ppen[slot] = 0.0
         self._bmask[slot] = 0.0
+        self._aidx[slot] = 0
         self._finished += 1
 
     def _reap_cancelled(self) -> None:
@@ -932,6 +1128,7 @@ class GenerationEngine:
         pref = self._resolve_prefix(req)
         t = len(req.prompt)
         samp = self._sampling_setup(req, pref.tokens if pref else None)
+        lkw, aidx = self._resolve_adapter(req.adapter_id)
         if pref is not None:
             p_bucket = pref.k.shape[2]
             # no bucket leaves room behind the prefix: pad the suffix to
@@ -942,16 +1139,16 @@ class GenerationEngine:
             start = pref.length + t
             first, k_new, v_new, flp = _prefill_suffix(
                 self.params, self._padded(req.prompt, bucket), t, pref.k,
-                pref.v, pref.length, self.cfg, self._freqs, samp)
+                pref.v, pref.length, self.cfg, self._freqs, samp, **lkw)
             self._prefix_hits += 1
         else:
             bucket = next(b for b in self._buckets if b >= t)
             start = t
             first, k_new, v_new, flp = _prefill(
                 self.params, self._padded(req.prompt, bucket), t, self.cfg,
-                self._freqs, samp)
+                self._freqs, samp, **lkw)
         self._finish_admission(req, slot, first, flp, k_new, v_new, start,
-                               samp)
+                               samp, aidx)
 
     def _start_chunking(self, req: _Request, slot: int) -> None:
         """First chunk of a long admission: seed the accumulator, max_len
@@ -960,6 +1157,7 @@ class GenerationEngine:
         prefill of the first chunk. It costs one slot's worth of K/V while
         the admission is in flight."""
         pref = self._resolve_prefix(req)
+        lkw, aidx = self._resolve_adapter(req.adapter_id)
         c = self.prefill_chunk
         if pref is not None:
             k, v = pref.k, pref.v
@@ -969,12 +1167,12 @@ class GenerationEngine:
             # samples nothing, so it draws nothing from any generator
             _, k, v = _prefill_logits(self.params,
                                       self._padded(req.prompt[:c], c), c,
-                                      self.cfg, self._freqs)
+                                      self.cfg, self._freqs, **lkw)
             consumed = frontier = c
         widen = self.max_len - k.shape[2]
         self._chunking = _Chunking(req, slot, _zero_rows(k, widen),
                                    _zero_rows(v, widen), consumed, frontier,
-                                   pref.tokens if pref else None)
+                                   pref.tokens if pref else None, lkw, aidx)
 
     def _chunk_step(self) -> None:
         """Advance the chunked admission by one chunk; the last chunk
@@ -995,7 +1193,7 @@ class GenerationEngine:
             if ck.consumed + take < len(req.prompt):
                 _, k, v = _prefill_suffix_logits(
                     self.params, padded, take, ck.k, ck.v, ck.frontier,
-                    self.cfg, self._freqs)
+                    self.cfg, self._freqs, **ck.lkw)
                 ck.k, ck.v = k[:, :, :self.max_len], v[:, :, :self.max_len]
                 ck.consumed += take
                 ck.frontier += take
@@ -1003,21 +1201,23 @@ class GenerationEngine:
             samp = self._sampling_setup(req, ck.prefix_tokens)
             first, k, v, flp = _prefill_suffix(
                 self.params, padded, take, ck.k, ck.v, ck.frontier, self.cfg,
-                self._freqs, samp)
+                self._freqs, samp, **ck.lkw)
             self._chunking = None
             self._finish_admission(req, ck.slot, first, flp,
                                    k[:, :, :self.max_len],
                                    v[:, :, :self.max_len],
-                                   ck.frontier + take, samp)
+                                   ck.frontier + take, samp, ck.aidx)
         except Exception as e:   # noqa: BLE001 — fail THIS request only
             self._chunking = None
             req.error = e
             req.out.put(None)
 
     def _finish_admission(self, req: _Request, slot: int, first, flp, k_new,
-                          v_new, start: int, samp: _Sampling) -> None:
+                          v_new, start: int, samp: _Sampling,
+                          aidx: int = 0) -> None:
         """Splice the K/V rows, seat the request, seed its rows of the
-        counts and bias grids, emit its first token."""
+        counts and bias grids, point its slot at its adapter's bank index,
+        emit its first token."""
         _splice_slot(self._cache, slot, k_new, v_new)
         first_tok = int(first[0])
         self._slot_req[slot] = req
@@ -1039,6 +1239,14 @@ class GenerationEngine:
                                          device=self.device)
             self._bias[slot] = torch.from_numpy(samp.bias_row).to(self.device)
             self._bmask[slot] = 1.0
+        with self._lock:
+            # the prefill ran outside the lock: if the adapter was evicted
+            # meanwhile (its index perhaps reused by a new tenant), the slot
+            # falls back to the base model
+            if (req.adapter_id is not None
+                    and self._adapter_slots.get(req.adapter_id) != aidx):
+                aidx = 0
+            self._aidx[slot] = aidx
         self._admitted += 1
         self._emit(slot, first_tok, float(flp[0]))
         if req.first_token_at is not None:
@@ -1094,6 +1302,13 @@ class GenerationEngine:
             if self._bias is not None:
                 steer.update(bias=self._bias,
                              bmask=torch.from_numpy(self._bmask).to(dev))
+            with self._lock:
+                banks, aidx = self._banks, self._aidx.copy()
+            # once a bank exists every step gathers each slot's factors,
+            # base traffic included (index 0, the zero adapter)
+            if banks:
+                steer.update(banks=banks, lora_scale=self._lora_cfg.scale,
+                             aidx=torch.from_numpy(aidx).to(dev))
             toks_k, lps_k = _decode_block(
                 self.params, self._cache,
                 torch.from_numpy(self._pos).to(dev),
@@ -1168,6 +1383,7 @@ class GenerationEngine:
                  timeout: Optional[float] = 300.0, *,
                  temperature: Optional[float] = None,
                  prefix_id: Optional[int] = None,
+                 adapter_id: Optional[int] = None,
                  top_p: Optional[float] = None,
                  frequency_penalty: float = 0.0,
                  presence_penalty: float = 0.0,
@@ -1177,7 +1393,8 @@ class GenerationEngine:
         """Blocking submit-and-wait on the background loop."""
         self.start()
         return self.submit(prompt, max_new_tokens, temperature=temperature,
-                           prefix_id=prefix_id, top_p=top_p,
+                           prefix_id=prefix_id, adapter_id=adapter_id,
+                           top_p=top_p,
                            frequency_penalty=frequency_penalty,
                            presence_penalty=presence_penalty, stop=stop,
                            logit_bias=logit_bias, seed=seed

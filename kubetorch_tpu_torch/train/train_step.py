@@ -21,9 +21,9 @@ JAX package's:
   them as they were.
 
 Not ported yet: a ``mesh`` (and so ``rules`` and ``overlap_grads``), which
-raise ``NotImplementedError`` (parallelism, ROADMAP Queue A item 12), and
+raise ``NotImplementedError`` (parallelism, ROADMAP Queue A item 7), and
 the ``kt_train_step_seconds{phase="compute"}`` observation, which waits
-for the port's copy of ``telemetry`` (ROADMAP Queue A item 7).
+for the port's copy of ``telemetry`` (ROADMAP Queue A item 1).
 """
 
 from __future__ import annotations

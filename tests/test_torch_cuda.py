@@ -935,3 +935,66 @@ def test_engine_zero_penalty_neighbours_are_bit_identical(cuda):
     assert beside == alone
     assert forced == [77] * 12
     assert len(set(penalized) | {4, 5, 6}) == len(penalized) + 3
+
+
+# ---------------------------------------------------------------------------
+# MoE serving (int8 expert banks beside int4 attention)
+# ---------------------------------------------------------------------------
+
+
+def test_moe_engine_kernel_counts_and_plain_path(cuda):
+    """A narrow MoE in fp32 on the card, int4 attention and head (through
+    B3), int8 experts and an int8 KV cache, on 2 slots (decode through the
+    dispatch, 2 x 2 x 2 > 4 experts) and 1 slot (the gather): the kernel
+    path gives the plain path's greedy tokens and exact launch counts."""
+    from kubetorch_tpu_torch.models.moe import MoeConfig, moe_init
+    for slots in (2, 1):
+        outs, counts = [], []
+        for impl in ("auto", "xla"):
+            cfg = MoeConfig.tiny(dtype=torch.float32, attn_impl=impl, dim=256,
+                                 ffn_dim=512, n_heads=4, n_kv_heads=2,
+                                 vocab_size=512)
+            params = quantize_params_int4(moe_init(cfg, seed=3, device=cuda))
+            eng = GenerationEngine(params, cfg, slots=slots, max_len=160,
+                                   prefill_buckets=(8, 128), quantize_kv=True,
+                                   device=cuda)
+            before = (flash_attention.launches, q4_matmul.launches,
+                      decode_attention_quant.launches, decode_attention.launches)
+            hs = [eng.submit(p, max_new_tokens=6)
+                  for p in ([5, 17, 42], list(range(1, 101)), [9, 8])]
+            while eng.step():
+                pass
+            torch.cuda.synchronize()
+            outs.append([h.result(timeout=0) for h in hs])
+            after = (flash_attention.launches, q4_matmul.launches,
+                     decode_attention_quant.launches, decode_attention.launches)
+            counts.append((tuple(a - b for a, b in zip(after, before)),
+                           eng.stats().decode_steps))
+        assert outs[0] == outs[1]
+        (auto, steps), _ = counts
+        # 3 prefills (one in the 128 bucket through A1); 2 layers; B3 on the
+        # 4 attention projections per layer and the 512-wide head, per
+        # prefill and per decode step; B2 per layer and step
+        assert auto == (2, (2 * 4 + 1) * (3 + steps), 2 * steps, 0)
+
+
+def test_moe_int8_bank_per_expert_equals_whole_bank_dequant(cuda):
+    """bf16 on the card: the dispatch's per-expert dequantization of an int8
+    bank, and the gather's dequantization of the gathered slices, give the
+    same bits as running on the bank dequantized whole."""
+    from kubetorch_tpu_torch.models.llama import layer_weights
+    from kubetorch_tpu_torch.models.moe import (MoeConfig, moe_ffn,
+                                                moe_ffn_decode, moe_init)
+    from kubetorch_tpu_torch.models.quant import dequant, quantize_params
+    cfg = MoeConfig.tiny(dim=512, ffn_dim=1024, n_heads=8, n_kv_heads=2,
+                         n_experts=8)
+    lw = layer_weights(quantize_params(moe_init(cfg, seed=1, device=cuda)), 0)
+    whole = dict(lw, experts={k: dequant(v, torch.bfloat16)
+                              for k, v in lw["experts"].items()})
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(2, 256, cfg.dim, generator=g, device=cuda).bfloat16()
+    got, _ = moe_ffn(cfg, x, lw)
+    want, _ = moe_ffn(cfg, x, whole)
+    assert torch.equal(got, want) and got.abs().sum() > 0
+    x1 = x[:, :1].contiguous()
+    assert torch.equal(moe_ffn_decode(cfg, x1, lw), moe_ffn_decode(cfg, x1, whole))

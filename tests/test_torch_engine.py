@@ -203,14 +203,28 @@ def test_unported_engine_knobs_raise(params, ctor_kw):
 
 
 @pytest.mark.parametrize("submit_kw", [{"adapter_id": 1}])
-def test_unported_request_knobs_raise(params, submit_kw):
+def test_unported_request_knobs_raise(tree, params, submit_kw):
+    """An adapter id the engine never registered fails as on the JAX
+    engine: KeyError at submit and at register_prefix; an empty adapter
+    tree fails registration with the JAX engine's error and type."""
+    from kubetorch_tpu.models.lora import LoraConfig as JaxLoraConfig
+    from kubetorch_tpu_torch.models.lora import LoraConfig
+    jeng = JaxEngine(jax.tree_util.tree_map(jnp.asarray, tree),
+                     JaxConfig.tiny(dtype=jnp.float32, remat=False,
+                                    attn_impl="xla"),
+                     slots=1, max_len=16, prefill_buckets=(8,))
     eng = GenerationEngine(params, cfg(), slots=1, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2], max_new_tokens=2, **submit_kw)
-    with pytest.raises(NotImplementedError):
-        eng.register_prefix([1, 2], **submit_kw)
-    with pytest.raises(NotImplementedError):
-        eng.register_adapter({}, None)
+    errors = []
+    for e, lcfg in ((jeng, JaxLoraConfig()), (eng, LoraConfig())):
+        with pytest.raises(KeyError, match="unknown adapter_id 1"):
+            e.submit([1, 2], max_new_tokens=2, **submit_kw)
+        with pytest.raises(KeyError, match="unknown adapter_id 1"):
+            e.register_prefix([1, 2], **submit_kw)
+        with pytest.raises(KeyError) as err:
+            e.register_adapter({}, lcfg)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert not eng._prefixes and eng._banks is None
 
 
 def test_engine_without_card_or_explicit_cpu_raises(params):

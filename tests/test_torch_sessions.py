@@ -93,9 +93,10 @@ def test_binder_adapter_mismatch_is_a_miss(params):
     finish(eng, b.submit("s1", prompt, max_new_tokens=2))
     assert b.lookup("s1", prompt + [99], adapter_id=7) == (None, prompt + [99])
     assert b.lookup("s1", prompt + [99])[0] is not None
-    # the port's engine serves no adapters: the miss reaches it and raises
-    with pytest.raises(NotImplementedError):
-        b.submit("s1", prompt + [99], adapter_id=7)
+    # the miss reaches the engine, which has no adapter 7 and fails the
+    # submit as the JAX engine does
+    with pytest.raises(KeyError, match="unknown adapter_id 7"):
+        b.submit("s1", prompt + [99], adapter_id=7, max_new_tokens=2)
     assert b.stats().misses == 2 and b.stats().hits == 0
 
 
