@@ -23,9 +23,11 @@
    at 40-token prompts, one request of 8192 rows, the full 8 x 2048
    grid), each through the body
    kt_decode_attention_body reports (split for bf16 q, FMA for fp32) and
-   bitwise equal over two calls, B2 also cold in L2; the int4 matmul (B3) at Llama-3-8B's projections, 1, 8 and 17
-   rows (both bodies' edges), a ragged 300 and 2048-row prefills, each
-   through the body kt_q4_matmul_body reports; A1 with its LSE, dQ (A2)
+   bitwise equal over two calls, B2 also cold in L2, and B1 again at the
+   Llama-3.2-1B draft's head dim 64 at shapes (a) and (d); the int4 matmul
+   (B3) at Llama-3-8B's projections, 1, 8 and 17 rows (both bodies'
+   edges), a ragged 300, the speculative verify window's 72 rows and
+   2048-row prefills, each through the body kt_q4_matmul_body reports; A1 with its LSE, dQ (A2)
    and dK/dV (A3) at the training shape and at head dim 128. For the
    tensor-core A1, A2 and A3 and for B3 also TFLOP/s of the counted work,
    the share of the bound and, on the printed line only, the previous
@@ -63,6 +65,22 @@
    finished); a prefix registered through an adapter matched by
    auto_prefix for that adapter's request and not for a base one; decode
    ms/step with the three adapters active beside the grid with none.
+   Then speculative decoding (SpeculativeEngine, spec_k 4, the same grid
+   with prefill_chunk 512) with a draft of Llama-3.2-1B's shape (bf16,
+   its own seed), and again with the target as its own draft: the 12
+   prompts, a 100-token suffix behind a registered 1000-token prefix and
+   an 1800-token prompt, with exact launch counts (A1 per layer of both
+   models in every from-zero pass, B1 per draft layer in each of a
+   round's k-1 draft decode steps, B2 none); the verify window's logits
+   at each slot's first window position against the plain engine's
+   decode step over the same grid, within 5e-2; self-draft acceptance at
+   least 0.5; tokens/s, tokens per target pass, acceptance and TTFT
+   beside the plain engine's rate on the same prompts, the wall of a
+   round's three passes and a 2-round profile. Then speculative_generate
+   on one 300-token prompt (plain attention only: no launches), and fp32
+   exactness at Llama-3-8B's width with 2 layers: SpeculativeEngine's
+   greedy tokens, with an independent draft and with self-draft, equal to
+   the plain engine's on 4 requests.
 5. Serves Llama-3-8B again, full width and depth, quantized: int4 weights
    (group 128, llama_init_quantized) and an int8 KV cache
    (quantize_kv=True), the same warm-up and 12 requests. Checks that every
@@ -80,7 +98,10 @@
    layer and step) and first-token logits against one-shot prefills.
    Then one LoRA adapter request beside four base ones on these weights:
    exact A1/B3/B2 counts, the adapter's first-token logits against the
-   weights dequantized to bf16 and merged, on the plain path.
+   weights dequantized to bf16 and merged, on the plain path. Then the
+   speculative phase on these weights with the bf16 1B draft: B3 also in
+   every verify window (72 rows), the window's logits against the plain
+   int8 decode step (B2).
 6. Serves Mixtral-8x7B at full width and depth (random weights from a
    seed, built on the card one matrix at a time in quantize_params_int4's
    layout: int8 experts, int4 attention and head) with an int8 KV cache:
@@ -100,8 +121,9 @@
    carried every layer of every step; prints tokens/s, ms/step, MFU, peak
    memory and a 2-step profile. Then holds the kernel path's gradients to
    the plain path's (fp32, 2 layers) and its loss (bf16, full depth).
-8. Prints one JSON line of per-kernel numbers, the card line, and as the
-   last line {"ok": true, "device": {...}}.
+8. Prints the speculative phases' numbers and the script's wall time, one
+   JSON line of per-kernel numbers, the card line, and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result.
 """
@@ -235,6 +257,26 @@ LORA_PREFIX = 300
 # 2-slot engine on the same weights, whose decode takes the K-expert
 # gather (2 x 2 x 2 <= 8 experts) where 8 slots take the dispatch
 MOE_GATHER_PROMPTS = (40, 300, 700, 1500)
+# the speculative phases (serve/spec_engine.py): spec_k 4 on the engine
+# phases' grid with chunked prefill, a Llama-3.2-1B-shape draft (bf16, its
+# own seed) or the target as its own draft; the engine phases' 12 prompts,
+# a 100-token suffix behind a 1000-token prefix and the 1800-token prompt
+# (the self-draft phase: the 12 prompts alone).
+# After the counted run, 8 slots of 40-token prompts decode SPEC_POST_NEW
+# tokens through the logits check, SPEC_TIMED_ROUNDS timed rounds and a
+# 2-round profile, then are cancelled. Self-draft must accept at least SPEC_SELF_ACCEPT of its
+# proposals: draft and target are one model and differ only where the
+# draft's B1 decode and the target's window einsum round a near-tie apart.
+# Exactness in fp32 at Llama-3-8B's width, 2 layers, beside a draft of
+# Llama-3.2-1B's width at the same depth
+SPEC_K, SPEC_DRAFT_SEED, SPEC_SUFFIX = 4, 1, 100
+SPEC_POST_NEW, SPEC_TIMED_ROUNDS, SPEC_SELF_ACCEPT = 64, 4, 0.5
+SPEC_EXACT = dict(layers=2, slots=4, prompts=(40, 200, 300, 1000), new=24, k=3)
+# B1 at the draft's head dim 64 (shapes (a) and (d) of DECODE_SHAPES), and
+# B3 at the verify window's 72 rows (8 slots x 2 SPEC_K + 1) at Llama-3-8B's
+# four projection shapes
+B1_DRAFT_SHAPES = ("a", "d")
+Q4_WINDOW_SHAPES = tuple((8 * (2 * SPEC_K + 1), k, n) for _, k, n in Q4_SHAPES[:4])
 
 
 def fail(msg: str) -> None:
@@ -415,75 +457,86 @@ def compare_grad(name, got, want) -> tuple:
 
 
 def check_flash(torch, F, ops_attn):
-    """A1 at B=1, N=32, NKV=8, Hd=128, causal: bf16 (the engine's type,
-    the tensor-core body) at every prefill bucket and a ragged T, fp32 (the
-    FMA body) at 128, 512 and 1024, each against the plain version; bf16
-    times at every length. Returns the record of T=1024."""
+    """A1 at B=1, N=32, NKV=8, causal, against the plain version: at Hd=128
+    (the target's prefill) bf16 (the engine's type, the tensor-core body)
+    at every prefill bucket and a ragged T, fp32 (the FMA body) at 128,
+    512 and 1024; at Hd=64 (the Llama-3.2-1B draft's prefill) bf16 at the
+    same lengths. bf16 times at every length and head dim. Returns the
+    record of Hd=128 T=1024 and the records of Hd=64."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rec = None
-    for t in (*A1_BUCKETS, A1_RAGGED):
-        q = torch.randn(1, t, 32, 128, generator=gen, device="cuda")
-        k = torch.randn(1, t, 8, 128, generator=gen, device="cuda")
-        v = torch.randn(1, t, 8, 128, generator=gen, device="cuda")
-        dtypes = (torch.float32, torch.bfloat16) if t in (128, 512, 1024) \
-            else (torch.bfloat16,)
+    rec, draft = None, []
+    for hd, t in [(128, t) for t in (*A1_BUCKETS, A1_RAGGED)] + \
+            [(64, t) for t in (*A1_BUCKETS, A1_RAGGED)]:
+        q = torch.randn(1, t, 32, hd, generator=gen, device="cuda")
+        k = torch.randn(1, t, 8, hd, generator=gen, device="cuda")
+        v = torch.randn(1, t, 8, hd, generator=gen, device="cuda")
+        dtypes = (torch.float32, torch.bfloat16) \
+            if hd == 128 and t in (128, 512, 1024) else (torch.bfloat16,)
         for dtype in dtypes:
             qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
             got = ops_attn.flash_attention(qd, kd, vd, causal=True)
             want = ops_attn.flash_attention_ref(qd, kd, vd, causal=True)
-            err, rel = compare(f"flash_fwd T={t}", got, want)
+            err, rel = compare(f"flash_fwd T={t} Hd={hd}", got, want)
             del got, want
         ms = time_ms(torch, lambda: ops_attn.flash_attention(qd, kd, vd))
         plain = time_ms(torch, lambda: ops_attn.flash_attention_ref(qd, kd, vd))
         qt, kt, vt = (x.transpose(1, 2) for x in (qd, kd, vd))
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
-        nbytes = (2 * 32 + 2 * 8) * t * 128 * 2
-        flops = 4 * 32 * 128 * t * (t + 1) / 2
+        nbytes = (2 * 32 + 2 * 8) * t * hd * 2
+        flops = 4 * 32 * hd * t * (t + 1) / 2
         b_ms, b_by = bound(nbytes, flops)
         rate = rate_line(flops, ms, b_ms)
         extra = ""
-        if t == 1024:
+        if t == 1024 and hd == 128:
             fp32_ms = time_ms(torch, lambda: ops_attn.flash_attention(q, k, v))
             prev = PREV_DESIGN_MS["fwd Hd=128"]
             extra = (f" fp32_fma_body_ms={fp32_ms} (fp32 inputs, measured) "
                      f"prev_design_bf16_ms={prev} (fp32-FMA body in bf16, "
                      f"PERF.md, not this run) speedup_vs_prev={prev / ms}")
-        print(f"kernel flash_fwd T={t} bf16: ms={ms} plain_ms={plain} "
+        print(f"kernel flash_fwd T={t} Hd={hd} bf16: ms={ms} plain_ms={plain} "
               f"sdpa_ms={lib} bound_ms={b_ms} ({b_by}) "
               f"tflops={rate['tflops']} bound_share={rate['bound_share']}"
               f"{extra}", flush=True)
-        if t == 1024:
+        shape = f"B=1 T={t} N=32 NKV=8 Hd={hd} bf16 causal"
+        if t == 1024 and hd == 128:
             rec = dict(max_abs_err=err, max_row_rel_err=rel, ms=ms,
                        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib, **rate, fp32_fma_body_ms=fp32_ms,
-                       shape=f"B=1 T={t} N=32 NKV=8 Hd=128 bf16 causal")
+                       shape=shape)
+        elif hd == 64:
+            draft.append(dict(max_abs_err=err, max_row_rel_err=rel, ms=ms,
+                              plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib, **rate, shape=shape))
         del q, k, v, qd, kd, vd, qt, kt, vt
         torch.cuda.empty_cache()
-    return rec
+    return rec, draft
 
 
-def decode_bound(b, s, pos_list, quant: bool):
+def decode_bound(b, s, pos_list, quant: bool, hd: int = 128):
     """(bound_ms, bound_by, bytes) of one flash-decode call at NH=32,
-    NKV=8, Hd=128: q read and out written once in bf16, the live K and V
-    rows (bf16, or int8 with a 4-byte scale each) and pos; 4 flops per live
-    row, query head and head dim."""
-    nh, nkv, hd = 32, 8, 128
+    NKV=8 and head dim ``hd``: q read and out written once in bf16, the
+    live K and V rows (bf16, or int8 with a 4-byte scale each) and pos; 4
+    flops per live row, query head and head dim."""
+    nh, nkv = 32, 8
     live = sum(min(p + 1, s) for p in pos_list)
     row = hd + 4 if quant else 2 * hd
     nbytes = 2 * b * nh * hd * 2 + 2 * live * nkv * row + 4 * b
     return (*bound(nbytes, 4 * nh * hd * live), nbytes)
 
 
-def check_decode_shape(torch, F, ops_dec, shape, quant: bool, gen):
-    """B1 (``quant`` False) or B2 at one of DECODE_SHAPES: bf16 q (and fp32
-    q at shape a) against the plain version per row, the route of each
-    (split body for bf16, FMA body for fp32), bitwise equal over two calls,
-    then bf16 times of the kernel, the plain version and SDPA (for B2 over
-    K/V dequantized to bf16, outside the timing), B2 also cold in L2."""
+def check_decode_shape(torch, F, ops_dec, shape, quant: bool, gen,
+                       hd: int = 128):
+    """B1 (``quant`` False) or B2 at one of DECODE_SHAPES with head dim
+    ``hd`` (Llama-3-8B's 128, or the Llama-3.2-1B draft's 64): bf16 q (and
+    fp32 q at shape a) against the plain version per row, the route of
+    each (split body for bf16, FMA body for fp32), bitwise equal over two
+    calls, then bf16 times of the kernel, the plain version and SDPA (for
+    B2 over K/V dequantized to bf16, outside the timing), B2 also cold in
+    L2."""
     from kubetorch_tpu_torch.serve import dequantize_rows, quantize_rows
     b, s, pos_list = DECODE_SHAPES[shape]
-    nh, nkv, hd = 32, 8, 128
+    nh, nkv = 32, 8
     name = "decode_attention_quant" if quant else "decode_attention"
     q = torch.randn(b, nh, hd, generator=gen, device="cuda")
     kf = torch.randn(b, s, nkv, hd, generator=gen, device="cuda")
@@ -525,24 +578,25 @@ def check_decode_shape(torch, F, ops_dec, shape, quant: bool, gen):
                                               attn_mask=mask, enable_gqa=True)
 
     lib = time_ms(torch, lambda: sdpa(q, kt, vt))
-    b_ms, b_by, nbytes = decode_bound(b, s, pos_list, quant)
-    prev = PREV_DECODE_MS[shape]
+    b_ms, b_by, nbytes = decode_bound(b, s, pos_list, quant, hd)
+    # the earlier design was timed at Hd 128 only
+    prev = PREV_DECODE_MS[shape] if hd == 128 else {}
     rec = dict(shape=f"({shape}) B={b} S={s} NH={nh} NKV={nkv} Hd={hd} "
                f"pos={pos_list} bf16 q" + (", int8 K/V" if quant else ""),
                body="split", splits=splits, max_abs_err=err,
                max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib, bound_share=b_ms / ms)
-    line = (f"kernel {name} ({shape}) B={b} S={s} pos={pos_list} body=split "
+    line = (f"kernel {name} ({shape}) B={b} S={s} Hd={hd} pos={pos_list} body=split "
             f"splits={splits}: ms={ms} plain_ms={plain_ms} sdpa_ms={lib} "
             f"bound_ms={b_ms} ({b_by}; {nbytes} bytes) "
             f"bound_share={b_ms / ms} prev_design_bf16_ms="
-            f"{prev['b2' if quant else 'b1']}")
+            f"{prev.get('b2' if quant else 'b1')}")
     if quant:
         rec["ms_cold_l2"] = time_cold_ms(torch, kern, (q, *args, pos))
         rec["library_ms_cold_l2"] = time_cold_ms(torch, sdpa, (q, kt, vt))
         line += (f" ms_cold_l2={rec['ms_cold_l2']} sdpa_ms_cold_l2="
                  f"{rec['library_ms_cold_l2']} prev_design_bf16_ms_cold_l2="
-                 f"{prev['b2_cold']}")
+                 f"{prev.get('b2_cold')}")
     print(line + " (prev: one block per kv-head and slot, PERF.md and "
           "tools/decode_ab.py, not this run)", flush=True)
     del q, args, cache, kt, vt
@@ -562,19 +616,32 @@ def check_decode(torch, F, ops_dec, quant: bool = False):
 
 
 def check_q4(torch, ops_q4):
-    """B3 at Q4_SHAPES, each through the body kt_q4_matmul_body reports
-    (split-K at M <= 16, wgmma above): fp32 output against the plain
-    version per row (x in fp32 and in bf16: the kernel rounds it to bf16
-    either way) and bitwise equal over two calls, then times with bf16 x.
-    Library: cuBLAS x_bf16 @ W_bf16 over the weight dequantized once,
-    outside the timing. Returns the record of the widest decode shape
-    (8 x 4096 x 14336, w_gate and w_up) with every shape's numbers beside
-    it."""
+    """B3 at Q4_SHAPES (:func:`check_q4_shapes`). Returns the record of the
+    widest decode shape (8 x 4096 x 14336, w_gate and w_up) with every
+    shape's numbers beside it."""
+    per_shape = check_q4_shapes(torch, ops_q4, Q4_SHAPES, seed=6)
+    widest = next(r for r in per_shape
+                  if r["shape"].startswith("M=8 K=4096 N=14336"))
+    # the kernels line's "route" is the language; B3's body is "body" here
+    # and "route" in each per_shape entry
+    rec = {k: v for k, v in widest.items() if k != "route"}
+    rec["body"] = widest["route"]
+    rec["per_shape"] = per_shape
+    return rec
+
+
+def check_q4_shapes(torch, ops_q4, shapes, seed):
+    """B3 at each (M, K, N) of ``shapes``, through the body
+    kt_q4_matmul_body reports (split-K at M <= 16, wgmma above): fp32
+    output against the plain version per row (x in fp32 and in bf16: the
+    kernel rounds it to bf16 either way) and bitwise equal over two calls,
+    then times with bf16 x. Library: cuBLAS x_bf16 @ W_bf16 over the weight
+    dequantized once, outside the timing. Returns one record per shape."""
     from kubetorch_tpu_torch.models.quant import (_dequant_int4,
                                                   _quantize_leaf_int4)
-    gen = torch.Generator(device="cuda").manual_seed(6)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     per_shape = []
-    for m, k, n in Q4_SHAPES:
+    for m, k, n in shapes:
         w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
         leaf = _quantize_leaf_int4(w, group=Q4_GROUP)
         del w
@@ -622,14 +689,7 @@ def check_q4(torch, ops_q4):
                               library_ms=lib, ms_cold_l2=ms_cold,
                               library_ms_cold_l2=lib_cold, **rate))
         torch.cuda.empty_cache()
-    widest = next(r for r in per_shape
-                  if r["shape"].startswith("M=8 K=4096 N=14336"))
-    # the kernels line's "route" is the language; B3's body is "body" here
-    # and "route" in each per_shape entry
-    rec = {k: v for k, v in widest.items() if k != "route"}
-    rec["body"] = widest["route"]
-    rec["per_shape"] = per_shape
-    return rec
+    return per_shape
 
 
 def check_train_kernels(torch, F, ops_attn):
@@ -821,7 +881,26 @@ def drive_engine(torch, ops_attn, ops_dec, card):
     features = drive_engine_features(torch, ops_attn, ops_dec, params, cfg, eng,
                                      card)
     lora = drive_lora(torch, ops_attn, ops_dec, params, cfg, eng, card)
-    return flash_n, decode_n, features, lora
+
+    draft, dcfg = spec_draft(torch)
+    spec_n, spec = {}, {}
+    # the self-draft phase adds only the full-accept path: the 12 prompts
+    # alone (the prefix and the 1800-token prompt run in the other phases)
+    for label, d, dc in (("spec", draft, dcfg), ("spec_self", params, cfg)):
+        spec_n[label], spec[label] = drive_spec(
+            torch, ops_attn, ops_dec, None, label, params, cfg, d, dc, prompts,
+            tok_s, card, extras=label == "spec")
+    if not spec["spec_self"]["acceptance_rate"] >= SPEC_SELF_ACCEPT:
+        fail(f"spec_self: acceptance rate {spec['spec_self']['acceptance_rate']}"
+             f" < {SPEC_SELF_ACCEPT}")
+    spec["spec_generate"] = drive_spec_generate(
+        torch, ops_attn, ops_dec, params, cfg, draft, dcfg, prompts[4], outs[4],
+        card)
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec["spec_exact"] = drive_spec_exact(torch, ops_attn, ops_dec, card)
+    return flash_n, decode_n, features, lora, spec_n, spec
 
 
 class Launches:
@@ -1344,7 +1423,12 @@ def drive_engine_quant(torch, ops_attn, ops_dec, ops_q4, card):
     features = drive_engine_q4_features(torch, ops_attn, ops_dec, ops_q4,
                                         params, cfg, prompt, card)
     lora = drive_lora_q4(torch, ops_attn, ops_dec, ops_q4, params, cfg, card)
-    return counts, features, lora
+    draft, dcfg = spec_draft(torch)
+    spec_n, spec = drive_spec(torch, ops_attn, ops_dec, ops_q4, "spec_q4",
+                              params, cfg, draft, dcfg, prompts, tok_s, card,
+                              quant=True)
+    del draft
+    return counts, features, lora, spec_n, spec
 
 
 def check_decode_step_quant(torch, engine_mod, ops_dec, eng, params, cfg,
@@ -1678,6 +1762,332 @@ def drive_lora_q4(torch, ops_attn, ops_dec, ops_q4, params, cfg, card):
     torch.cuda.empty_cache()
     print(f"lora_q4: phase wall {time.perf_counter() - t_phase:.1f}s", flush=True)
     return got
+
+
+def spec_draft(torch):
+    """The draft of the speculative phases: Llama-3.2-1B's shape at full
+    width and depth, bf16, random weights from its own seed."""
+    from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
+    dcfg = LlamaConfig.llama3_1b()
+    return llama_init(dcfg, seed=SPEC_DRAFT_SEED, device="cuda"), dcfg
+
+
+def spec_want(cfg, dcfg, prompts, rounds, head_q4=None, prefix=True):
+    """Exact launch counts of a speculative run over ``prompts`` (the
+    from-zero admissions: one-shot, or chunked from a from-zero first
+    chunk), with ``prefix`` one prefix registration and one prefix hit, in
+    ``rounds`` rounds. A1 once per layer of each model in every from-zero pass (every
+    bucket and the chunk are 128-multiples; none in a suffix pass); B1 once
+    per draft layer in each of a round's k-1 draft decode steps (the
+    target's verify window is the plain einsum); B2 never (the draft's grid
+    stays bf16). An int4 target (``head_q4`` not None) adds B3 on its 7
+    projections (and the head where it tiles) in every target pass: each
+    from-zero pass, the registration, the hit's suffix pass, each chunk
+    after the first, and each round's verify window."""
+    zero = len(prompts) + prefix
+    want = dict(flash_fwd=(cfg.n_layers + dcfg.n_layers) * zero,
+                decode_attention=dcfg.n_layers * (SPEC_K - 1) * rounds,
+                decode_attention_quant=0)
+    if head_q4 is not None:
+        suffix = prefix + sum(-(-len(p) // CHUNK) - 1 for p in prompts
+                         if len(p) > CHUNK)
+        want["q4_matmul"] = ((7 * cfg.n_layers + head_q4)
+                             * (zero + suffix + rounds))
+    return want
+
+
+def check_window_logits(torch, label, eng, params, cfg, prompts):
+    """One round of a full grid (8 slots of 40-token prompts, one round
+    past admission): the target's verify-window logits at each slot's
+    first window position against the plain engine's decode step at the
+    same position and token over a copy of the same grid (B1 over a bf16
+    grid, B2 over an int8 one), within LOGITS_REL_L2 per slot. Returns the
+    requests, still decoding."""
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+    from kubetorch_tpu_torch.serve import spec_engine as spec_mod
+    hs = [eng.submit(p[:40], max_new_tokens=SPEC_POST_NEW)
+          for p in prompts[:eng.slots]]
+    eng.step()                          # admissions + one round
+    real = spec_mod._grid_ingest
+    seen = []
+
+    def hooked(p, cache, blocks, start, true_len, c, **kw):
+        if cache is not eng._cache or seen:
+            return real(p, cache, blocks, start, true_len, c, **kw)
+        grid = type(cache)(*(t.clone() for t in cache))
+        plain = engine_mod._decode_step_impl(p, grid, start.to(torch.int32),
+                                             blocks[:, 0], c, eng._freqs)
+        del grid
+        out = real(p, cache, blocks, start, true_len, c, **kw)
+        seen.append((out[:, 0].clone(), plain, true_len.cpu()))
+        return out
+
+    spec_mod._grid_ingest = hooked
+    try:
+        eng.step()
+    finally:
+        spec_mod._grid_ingest = real
+    win, plain, tl = seen[0]
+    active = [i for i in range(eng.slots) if tl[i] > 0]
+    if not (torch.isfinite(win).all() and win.shape == (eng.slots, cfg.vocab_size)):
+        fail(f"{label}: verify-window logits not finite or of the wrong shape")
+    rels = [float((win[i] - plain[i]).norm() / plain[i].norm()) for i in active]
+    agree = sum(int(win[i].argmax()) == int(plain[i].argmax()) for i in active)
+    print(f"{label}: verify-window logits at the first window position vs "
+          f"the plain engine's decode step, {len(active)} slots at rows "
+          f"{eng._spec_valid.tolist()}: max rel_l2={max(rels)} per slot "
+          f"{[round(r, 5) for r in rels]} tol_rel_l2={LOGITS_REL_L2} argmax "
+          f"agree {agree}/{len(active)}", flush=True)
+    if len(active) != eng.slots or not max(rels) <= LOGITS_REL_L2:
+        fail(f"{label}: verify-window logits differ from the plain decode "
+             f"step: {rels} (tol {LOGITS_REL_L2})")
+    return hs
+
+
+def time_round_parts(torch, label, eng, n):
+    """Wall ms of a round's three passes (draft ingest, draft decode block,
+    target verify window), each between synchronizes, over ``n`` rounds of
+    the grid as it stands, and of the whole round."""
+    from kubetorch_tpu_torch.serve import spec_engine as spec_mod
+    real_ingest, real_block = spec_mod._grid_ingest, spec_mod._decode_block
+    parts = {"draft ingest": 0.0, "draft block": 0.0, "target window": 0.0}
+
+    def timed(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        parts[name] += time.perf_counter() - t
+        return out
+
+    def ingest(p, cache, *args, **kw):
+        name = "target window" if cache is eng._cache else "draft ingest"
+        return timed(name, real_ingest, p, cache, *args, **kw)
+
+    spec_mod._grid_ingest = ingest
+    spec_mod._decode_block = lambda *a, **kw: timed("draft block",
+                                                    real_block, *a, **kw)
+    try:
+        ms = timed_steps(torch, eng, n)
+    finally:
+        spec_mod._grid_ingest, spec_mod._decode_block = real_ingest, real_block
+    split = {k: v / n * 1e3 for k, v in parts.items()}
+    print(f"{label}: wall ms per round {ms} (synchronized passes, {n} rounds, "
+          f"{eng.slots} slots): " + ", ".join(f"{k} {v}" for k, v in split.items()),
+          flush=True)
+    return ms, split
+
+
+def drive_spec(torch, ops_attn, ops_dec, ops_q4, label, params, cfg, draft,
+               dcfg, prompts, plain_rate, card, quant=False, extras=True):
+    """One speculative phase at Llama-3-8B's width and depth through
+    SpeculativeEngine (spec_k SPEC_K, the engine phases' grid with chunked
+    prefill, ``quantize_kv=quant``): the engine phases' 12 prompts (6 up
+    front, then one per step; those over CHUNK tokens admit in chunks)
+    and, with ``extras``, a 100-token suffix behind a registered
+    1000-token prefix and an 1800-token prompt, with exact launch counts; then the verify window's
+    logits against the plain decode step, the wall of a round's passes and
+    a 2-round profile on a full grid. ``plain_rate``: the plain engine's
+    decode tokens/s on the same prompts in this process."""
+    from kubetorch_tpu_torch.models.quant import Q4KEY
+    from kubetorch_tpu_torch.serve import SpeculativeEngine
+
+    t_phase = time.perf_counter()
+    eng = SpeculativeEngine(params, cfg, draft, dcfg, spec_k=SPEC_K,
+                            **FEATURE_GRID, prefill_chunk=CHUNK,
+                            quantize_kv=quant, device="cuda")
+    rng = np.random.default_rng(13)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    # warm-up, not counted: a one-shot admission, a prefix hit and a
+    # chunked admission (allocator, GEMM plans)
+    warm = eng.register_prefix(prompt(PREFIX_LEN)) if extras else None
+    eng.submit(prompt(100), max_new_tokens=2)
+    if extras:
+        eng.submit(prompt(40), max_new_tokens=2, prefix_id=warm)
+    eng.submit(prompt(CHUNK + 100), max_new_tokens=2)
+    drain(torch, eng)
+    if extras:
+        eng.unregister_prefix(warm)
+    prefix, suffix, long = prompt(PREFIX_LEN), prompt(SPEC_SUFFIX), prompt(CHUNK_PROMPT)
+    launches = Launches(ops_attn, ops_dec, ops_q4 if quant else None)
+    rounds0, st0 = eng._steps, dataclasses.replace(eng.spec_stats)
+    base = eng.stats()
+    launches.zero()
+    pid = eng.register_prefix(prefix) if extras else None
+    handles = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts[:6]]
+    if extras:
+        handles.append(eng.submit(suffix, max_new_tokens=MAX_NEW,
+                                  prefix_id=pid))
+        handles.append(eng.submit(long, max_new_tokens=MAX_NEW))
+    todo, steps = list(prompts[6:]), []
+    while True:
+        if todo:   # one new request per step while the grid decodes
+            handles.append(eng.submit(todo.pop(0), max_new_tokens=MAX_NEW))
+        before = eng.stats()
+        t = time.perf_counter()
+        left = eng.step()
+        torch.cuda.synchronize()
+        after = eng.stats()
+        steps.append((time.perf_counter() - t,
+                      after.admitted_total - before.admitted_total,
+                      after.tokens_generated - before.tokens_generated))
+        if not left and not todo:
+            break
+    got = launches.read()
+    rounds = eng._steps - rounds0
+    head_q4 = None
+    if quant:
+        head = params["lm_head"]
+        head_q4 = int(ops_q4.q4_supported((1, cfg.dim), head[Q4KEY].shape,
+                                          head["scale"].shape))
+    want = spec_want(cfg, dcfg, list(prompts) + [long] * extras, rounds,
+                     head_q4, prefix=extras)
+    if not all(v > 0 for k, v in want.items() if k != "decode_attention_quant"):
+        fail(f"{label}: a kernel of the path has no launch to count: {want}")
+    check_launches(label, got, want)
+    outs = [h.result(timeout=0) for h in handles]
+    if len(outs) != len(prompts) + 2 * extras or any(
+            len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o)
+            for o in outs) or eng._prefix_hits != 2 * extras:
+        fail(f"{label}: tokens {[len(o) for o in outs]}, prefix hits "
+             f"{eng._prefix_hits} (warm-up included)")
+    st = eng.spec_stats
+    proposed, accepted = st.proposed - st0.proposed, st.accepted - st0.accepted
+    accept = accepted / proposed
+    admitted = eng.stats().admitted_total - base.admitted_total
+    emitted = eng.stats().tokens_generated - base.tokens_generated
+    rate, ms_round = decode_rate(steps)
+    ttft = [h.time_to_first_token() for h in handles]
+    grid = (f", a {SPEC_SUFFIX}-token suffix behind a {PREFIX_LEN}-token "
+            f"prefix, an {CHUNK_PROMPT}-token prompt" if extras else "")
+    print(f"{label}: {len(outs)} requests ({len(prompts)} prompts{grid}; "
+          f"over {CHUNK} tokens in chunks of {CHUNK}) completed, "
+          f"{MAX_NEW} tokens each, in {rounds} rounds: acceptance_rate="
+          f"{accept} ({accepted}/{proposed}), tokens_per_target_pass="
+          f"{(emitted - admitted) / rounds} (tokens of rounds / rounds, "
+          f"{len(outs)} first tokens from prefills excluded); "
+          f"decode_tok_per_s={rate} ({ms_round} ms per round without "
+          f"admission) vs the plain engine {plain_rate} on the same 12 "
+          f"prompts; mean_ttft_s={sum(ttft) / len(ttft)} card={card}",
+          flush=True)
+    hs = check_window_logits(torch, label, eng, params, cfg, prompts)
+    ms, split = time_round_parts(torch, label, eng, SPEC_TIMED_ROUNDS)
+    profile_steps(torch, f"{label}: 2 rounds, {eng.slots} slots", eng.step, 2)
+    # 2 + SPEC_TIMED_ROUNDS + 2 rounds ran, each emitting at least one token
+    # per slot after the first token; the rest of the budget is not needed
+    for h in hs:
+        h.cancel()
+    drain(torch, eng)
+    least = 1 + 2 + SPEC_TIMED_ROUNDS + 2
+    if any(len(h.result(timeout=0)) < least for h in hs):
+        fail(f"{label}: a request of the full-grid rounds emitted fewer than "
+             f"{least} tokens")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: phase wall {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return got, dict(acceptance_rate=accept, rounds=rounds,
+                     tokens_per_target_pass=(emitted - admitted) / rounds,
+                     decode_tok_per_s=rate, plain_decode_tok_per_s=plain_rate,
+                     mean_ttft_s=sum(ttft) / len(ttft), ms_per_round=ms,
+                     round_split_ms=split)
+
+
+def drive_spec_exact(torch, ops_attn, ops_dec, card):
+    """fp32 exactness at Llama-3-8B's width with SPEC_EXACT["layers"]
+    layers (TF32 off), beside a draft of Llama-3.2-1B's width at the same
+    depth: every request's greedy tokens through SpeculativeEngine, with
+    that draft and with the target as its own draft, equal the plain
+    GenerationEngine's, with exact launch counts."""
+    from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
+    from kubetorch_tpu_torch.serve import GenerationEngine, SpeculativeEngine
+
+    t_phase = time.perf_counter()
+    n_layers, k = SPEC_EXACT["layers"], SPEC_EXACT["k"]
+    cfg = LlamaConfig.llama3_8b(n_layers=n_layers, dtype=torch.float32)
+    dcfg = LlamaConfig.llama3_1b(n_layers=n_layers, dtype=torch.float32)
+    params = llama_init(cfg, seed=5, device="cuda")
+    draft = llama_init(dcfg, seed=6, device="cuda")
+    grid = dict(FEATURE_GRID, slots=SPEC_EXACT["slots"], device="cuda")
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SPEC_EXACT["prompts"]]
+    new = SPEC_EXACT["new"]
+
+    def run(eng):
+        hs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        while eng.step():
+            pass
+        return [h.result(timeout=0) for h in hs]
+
+    want = run(GenerationEngine(params, cfg, **grid))
+    launches = Launches(ops_attn, ops_dec)
+    rates = {}
+    for name, d, dc in (("independent draft", draft, dcfg),
+                        ("self-draft", params, cfg)):
+        eng = SpeculativeEngine(params, cfg, d, dc, spec_k=k, **grid)
+        launches.zero()
+        got = run(eng)
+        counts = launches.read()
+        rates[name] = eng.spec_stats.acceptance_rate
+        check_launches(f"spec_exact {name}", counts, dict(
+            flash_fwd=(cfg.n_layers + dc.n_layers) * len(prompts),
+            decode_attention=dc.n_layers * (k - 1) * eng._steps,
+            decode_attention_quant=0))
+        same = [g == w for g, w in zip(got, want)]
+        print(f"spec_exact {name}: fp32, {cfg.n_layers} layers at "
+              f"Llama-3-8B's width, {len(prompts)} requests x {new} tokens, "
+              f"k={k}, {eng._steps} rounds: tokens equal to the plain "
+              f"engine's {sum(same)}/{len(same)}, acceptance_rate="
+              f"{rates[name]}", flush=True)
+        if not all(same):
+            first = next(i for i, s_ in enumerate(same) if not s_)
+            fail(f"spec_exact {name}: request {first} gave {got[first]}, the "
+                 f"plain engine {want[first]}")
+        del eng
+    del params, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"spec_exact: phase wall {time.perf_counter() - t_phase:.1f}s "
+          f"card={card}", flush=True)
+    return rates
+
+
+def drive_spec_generate(torch, ops_attn, ops_dec, params, cfg, draft, dcfg,
+                        prompt, plain_tokens, card):
+    """speculative_generate: one request on the bf16 target with the 1B
+    draft, k = SPEC_K, MAX_NEW tokens. Every pass is the plain cached
+    attention (the JAX package's path: no flash prefill, single-step draft
+    ingests), so no kernel launches; the tokens' agreement with the plain
+    engine's for the same prompt is printed, not held (bf16 near-ties)."""
+    from kubetorch_tpu_torch.serve import SpecStats, speculative_generate
+    launches = Launches(ops_attn, ops_dec)
+    stats = SpecStats()
+    launches.zero()
+    t = time.perf_counter()
+    toks = speculative_generate(params, cfg, draft, dcfg, prompt,
+                                max_new_tokens=MAX_NEW, k=SPEC_K, stats=stats,
+                                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launches.read()
+    check_launches("spec_generate", counts, dict(
+        flash_fwd=0, decode_attention=0, decode_attention_quant=0))
+    if len(toks) != MAX_NEW or not all(0 <= x < cfg.vocab_size for x in toks) \
+            or stats.rounds < 1:
+        fail(f"spec_generate: {len(toks)} tokens {toks[:8]}, {stats}")
+    lead = next((i for i, (a, b) in enumerate(zip(toks, plain_tokens))
+                 if a != b), len(toks))
+    print(f"spec_generate: a {len(prompt)}-token prompt, {MAX_NEW} tokens, "
+          f"k={SPEC_K}: {stats.rounds} rounds, acceptance_rate="
+          f"{stats.acceptance_rate}, wall {wall}s ({MAX_NEW / wall} tokens/s, "
+          f"prefill included); leading tokens equal to the plain engine's "
+          f"{lead}/{MAX_NEW} card={card}", flush=True)
+    return dict(rounds=stats.rounds, acceptance_rate=stats.acceptance_rate,
+                wall_s=wall)
 
 
 def mixtral_init_quantized(torch, cfg, seed):
@@ -2056,6 +2466,7 @@ def check_train_paths(torch, cfg, params, tokens):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -2083,18 +2494,22 @@ def main() -> None:
           flush=True)
     check_tensor_core_sass(_build)
 
-    flash = check_flash(torch, F, ops_attn)
+    flash, flash_draft = check_flash(torch, F, ops_attn)
     dec = check_decode(torch, F, ops_dec)
     dec_q = check_decode(torch, F, ops_dec, quant=True)
     q4 = check_q4(torch, ops_q4)
+    gen64 = torch.Generator(device="cuda").manual_seed(8)
+    dec_draft = [check_decode_shape(torch, F, ops_dec, shape, False, gen64, hd=64)
+                 for shape in B1_DRAFT_SHAPES]
+    q4_window = check_q4_shapes(torch, ops_q4, Q4_WINDOW_SHAPES, seed=9)
     train_k = check_train_kernels(torch, F, ops_attn)
     t = time.perf_counter()
-    flash_n, decode_n, feat_n, lora_n = drive_engine(torch, ops_attn, ops_dec,
-                                                     card)
+    flash_n, decode_n, feat_n, lora_n, spec_n, spec = drive_engine(
+        torch, ops_attn, ops_dec, card)
     gc.collect()
     torch.cuda.empty_cache()
-    quant_n, qfeat_n, qlora_n = drive_engine_quant(torch, ops_attn, ops_dec,
-                                                   ops_q4, card)
+    quant_n, qfeat_n, qlora_n, qspec_n, spec["spec_q4"] = drive_engine_quant(
+        torch, ops_attn, ops_dec, ops_q4, card)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"engines: Llama-3-8B phases wall {time.perf_counter() - t:.1f}s",
@@ -2117,13 +2532,21 @@ def main() -> None:
              lora=dict(launches=lora_n["flash_fwd"]),
              lora_q4=dict(launches=qlora_n["flash_fwd"]),
              moe=dict(launches=moe_n["flash_fwd"]),
-             moe_gather=dict(launches=moe_gather_n["flash_fwd"])),
+             moe_gather=dict(launches=moe_gather_n["flash_fwd"]),
+             spec=dict(launches=spec_n["spec"]["flash_fwd"]),
+             spec_self=dict(launches=spec_n["spec_self"]["flash_fwd"]),
+             spec_q4=dict(launches=qspec_n["flash_fwd"]),
+             draft_hd64=flash_draft),
         dict(name="decode_attention", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
              launches=decode_n, path="serving", **dec,
              engine_features=dict(launches=feat_n["decode_attention"]),
-             lora=dict(launches=lora_n["decode_attention"])),
+             lora=dict(launches=lora_n["decode_attention"]),
+             spec=dict(launches=spec_n["spec"]["decode_attention"]),
+             spec_self=dict(launches=spec_n["spec_self"]["decode_attention"]),
+             spec_q4=dict(launches=qspec_n["decode_attention"]),
+             draft_hd64=dec_draft),
         dict(name="flash_bwd_dq", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:140",
@@ -2141,7 +2564,8 @@ def main() -> None:
                  launches=qfeat_n["decode_attention_quant"]),
              lora_q4=dict(launches=qlora_n["decode_attention_quant"]),
              moe=dict(launches=moe_n["decode_attention_quant"]),
-             moe_gather=dict(launches=moe_gather_n["decode_attention_quant"])),
+             moe_gather=dict(launches=moe_gather_n["decode_attention_quant"]),
+             spec_q4=dict(launches=qspec_n["decode_attention_quant"])),
         dict(name="q4_matmul", route="cuda",
              source="kubetorch_tpu_torch/csrc/quant_matmul.cu",
              replaces="kubetorch_tpu/ops/quant_matmul.py:31",
@@ -2150,8 +2574,12 @@ def main() -> None:
              engine_q4_features=dict(launches=qfeat_n["q4_matmul"]),
              lora_q4=dict(launches=qlora_n["q4_matmul"]),
              moe=dict(launches=moe_n["q4_matmul"]),
-             moe_gather=dict(launches=moe_gather_n["q4_matmul"])),
+             moe_gather=dict(launches=moe_gather_n["q4_matmul"]),
+             spec_q4=dict(launches=qspec_n["q4_matmul"]),
+             verify_window=q4_window),
     ]
+    print(f"spec: {json.dumps(spec)}", flush=True)
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Serving: the continuous-batching generation engine, weight quantization
-for it, its int8 KV cache, and the session binder that keeps a session's
+for it, its int8 KV cache, speculative decoding (one request, and the
+engine with a draft model), and the session binder that keeps a session's
 prompt resident as a cached prefix."""
 
 from ..models.quant import (dequantize_params, llama_init_quantized,
@@ -9,9 +10,12 @@ from .engine import EngineStats, GenerationEngine, RequestHandle
 from .kv_quant import (QuantKVCache, dequantize_rows, init_quant_cache,
                        quantize_rows)
 from .sessions import EngineSessionBinder, SessionStats, session_key
+from .spec_engine import SpeculativeEngine
+from .speculative import SpecStats, speculative_generate
 
 __all__ = ["EngineStats", "GenerationEngine", "RequestHandle",
            "EngineSessionBinder", "SessionStats", "session_key",
+           "SpeculativeEngine", "SpecStats", "speculative_generate",
            "quantize_params", "quantize_params_int4", "llama_init_quantized",
            "dequantize_params", "quantized_bytes",
            "QuantKVCache", "init_quant_cache", "quantize_rows",

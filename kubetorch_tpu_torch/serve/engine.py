@@ -1011,6 +1011,11 @@ class GenerationEngine:
         self._bmask[slot] = 0.0
         self._aidx[slot] = 0
         self._finished += 1
+        self._free_slot_ledgers(slot)
+
+    def _free_slot_ledgers(self, slot: int) -> None:
+        """Subclass hook: extra per-slot state to clear on retirement
+        (``serve.spec_engine`` clears its position ledgers here)."""
 
     def _reap_cancelled(self) -> None:
         for slot, req in enumerate(self._slot_req):

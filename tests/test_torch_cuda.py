@@ -998,3 +998,75 @@ def test_moe_int8_bank_per_expert_equals_whole_bank_dequant(cuda):
     assert torch.equal(got, want) and got.abs().sum() > 0
     x1 = x[:, :1].contiguous()
     assert torch.equal(moe_ffn_decode(cfg, x1, lw), moe_ffn_decode(cfg, x1, whole))
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: B1 at the draft's head dim, B3 at the verify window
+# ---------------------------------------------------------------------------
+
+
+def test_spec_engine_on_the_card_matches_plain_engine(cuda):
+    """tiny in fp32 on the card: SpeculativeEngine, with an independent
+    draft and with the target as its own draft, gives the plain engine's
+    greedy tokens; the run went through A1 (the 128-bucket prefills of
+    both models) and B1 (the draft's decode blocks), and self-draft
+    accepts every proposal (13 tokens: the first, then three rounds of
+    k + 1 = 4, so no budget cuts a round short)."""
+    from kubetorch_tpu_torch.serve import SpeculativeEngine
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    dcfg = LlamaConfig.tiny(dtype=torch.float32, dim=32, n_layers=1,
+                            n_heads=2, n_kv_heads=1, ffn_dim=64)
+    params = llama_init(cfg, seed=3, device=cuda)
+    draft = llama_init(dcfg, seed=4, device=cuda)
+    prompts = ([5, 17, 42], list(range(1, 101)), [9, 8])
+    grid = dict(slots=2, max_len=160, prefill_buckets=(8, 128), device=cuda)
+
+    def run(eng):
+        hs = [eng.submit(p, max_new_tokens=13) for p in prompts]
+        while eng.step():
+            pass
+        return [h.result(timeout=0) for h in hs]
+
+    want = run(GenerationEngine(params, cfg, **grid))
+    for d, dc in ((draft, dcfg), (params, cfg)):
+        eng = SpeculativeEngine(params, cfg, d, dc, spec_k=3, **grid)
+        a1, b1 = flash_attention.launches, decode_attention.launches
+        assert run(eng) == want
+        torch.cuda.synchronize()
+        assert flash_attention.launches - a1 == cfg.n_layers + dc.n_layers
+        # B1 once per draft layer in each of a round's k-1 decode steps;
+        # the target's verify window attends with the plain einsum
+        assert decode_attention.launches - b1 == \
+            dc.n_layers * (eng.k - 1) * eng._steps
+    assert eng.spec_stats.acceptance_rate == 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [[0, 63, 64, 700, 1024, 1500, 2000, 2047],
+                                 [2047] * 8])
+def test_decode_kernel_at_the_draft_head_dim(cuda, dtype, pos):
+    """B1 at the Llama-3.2-1B draft's heads (NH 32, NKV 8, Hd 64) on 8
+    slots of 2048 rows, ragged and full: the split body for bf16 (the FMA
+    body for fp32), per row within the tolerance, the same bits twice."""
+    b, s, nh, nkv, hd = 8, 2048, 32, 8, 64
+    q, kf, vf, p = _decode_inputs(cuda, b, s, nh, nkv, hd, pos)
+    q, ck, cv = q.to(dtype), kf.to(dtype), vf.to(dtype)
+    assert decode_attention_body(dtype, hd, nh, nkv) == (
+        "split" if dtype == torch.bfloat16 else "fma")
+    got = decode_attention(q, ck, cv, p)
+    assert row_rel_err(got, decode_attention_ref(q, ck, cv, p)) <= ROW_RTOL[dtype]
+    assert torch.equal(got, decode_attention(q, ck, cv, p))
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096)])
+def test_q4_kernel_at_the_verify_window(cuda, k, n):
+    """B3 at 72 rows (8 slots x a 9-token verify window, spec_k 4) at
+    Llama-3-8B's projections: the wgmma body, per row within the fp32
+    tolerance, the same bits twice."""
+    x, packed, scale = _q4_operands(cuda, 72, k, n, seed=k + n)
+    assert q4_matmul_body(72, k, n, scale.shape[0]) == "wgmma"
+    got = q4_matmul(x.bfloat16(), packed, scale)
+    assert row_rel_err(got, q4_matmul_ref(x, packed, scale)) \
+        <= ROW_RTOL[torch.float32]
+    assert torch.equal(got, q4_matmul(x.bfloat16(), packed, scale))
