@@ -28,7 +28,9 @@
    (B3) at Llama-3-8B's projections, 1, 8 and 17 rows (both bodies'
    edges), a ragged 300, the speculative verify window's 72 rows and
    2048-row prefills, each through the body kt_q4_matmul_body reports; A1 with its LSE, dQ (A2)
-   and dK/dV (A3) at the training shape and at head dim 128. For the
+   and dK/dV (A3) at the 1B training shape (head dim 64), at the 8B and
+   Mixtral training shape (4 x 2048, head dim 128) and at head dim 128,
+   B=1, S=1024. For the
    tensor-core A1, A2 and A3 and for B3 also TFLOP/s of the counted work,
    the share of the bound and, on the printed line only, the previous
    design's bf16 time (quoted from PERF.md, not measured here); for B1 and
@@ -65,6 +67,19 @@
    finished); a prefix registered through an adapter matched by
    auto_prefix for that adapter's request and not for a base one; decode
    ms/step with the three adapters active beside the grid with none.
+   Then a LoRA fine-tune of these params at full width and depth
+   ("lora_train"; the plain engine freed first, the base never copied):
+   rank 16 on wq/wk/wv/wo, lora_loss through make_train_step with
+   adamw(1e-3), remat "dots", chunked CE, 5 steps on one seeded 4 x 2048
+   batch fed through prefetch_to_device: the loss falls, the step-0 loss
+   is within LOSS_ABS of the plain attention path, every base leaf hashes
+   the same after training, exact A1/A2/A3 counts (64/32/32 a step), 5
+   kt_train_step_seconds{phase="compute"} observations, adapter gradients
+   of the kernel path within TRAIN_GRAD_REL of the plain path in fp32 at 2
+   layers, a profiled step; then the trained adapter served merged
+   (merge_lora -> a new engine) and banked (registered into the LoRA
+   phase's engine), first-token logits of the banked requests against the
+   merged engine's within LOGITS_REL_L2, exact A1/B1 counts both ways.
    Then speculative decoding (SpeculativeEngine, spec_k 4, the same grid
    with prefill_chunk 512) with a draft of Llama-3.2-1B's shape (bf16,
    its own seed), and again with the target as its own draft: the 12
@@ -113,7 +128,16 @@
    and the dispatch held per row on the engine's own hidden state, a
    decode profile; then 4 requests on a 2-slot engine, whose decode takes
    the gather, with the same exact counts. Prints decode tokens/s, TTFT,
-   weight, cache and peak GB, and each new phase its wall time.
+   weight, cache and peak GB, and each new phase its wall time. Then
+   trains Mixtral-8x7B's width at 2 of its 32 layers ("moe_train", bf16,
+   default_optimizer, moe_loss, 5 steps through prefetch_to_device): the
+   loss falls, the router aux term is finite and positive, exact A1/A2/A3
+   counts (4/2/2 a step), a profiled step; one lora_loss step over the
+   trained MoE base (wq/wv; moe_loss by default); and, in fp32 on the
+   same 2 layers, the loss and every leaf's gradient of the kernel path
+   within TRAIN_GRAD_REL of the plain path, after asserting that both
+   paths chose the same experts and kept the same pairs (pinned to the
+   kernel path's choices where a near-tie router flips, and said so).
 7. Trains Llama-3.2-1B's shape (LlamaConfig.llama3_1b, full width and
    depth, bf16, random weights from a seed) with make_train_step and
    default_optimizer on one batch of 4 x 2048 tokens: warm-up steps, then
@@ -121,7 +145,8 @@
    carried every layer of every step; prints tokens/s, ms/step, MFU, peak
    memory and a 2-step profile. Then holds the kernel path's gradients to
    the plain path's (fp32, 2 layers) and its loss (bf16, full depth).
-8. Prints the speculative phases' numbers and the script's wall time, one
+8. Prints the speculative and training phases' numbers and the script's
+   wall time, one
    JSON line of per-kernel numbers, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -157,6 +182,8 @@ A1_BUCKETS, A1_RAGGED = (128, 256, 512, 1024, 2048), 1000
 # Hd 128 is the serving T=1024 time, the same shape without the LSE
 PREV_DESIGN_MS = {"fwd Hd=64": 3.395, "fwd Hd=128": 0.627, "dkv Hd=64": 6.52,
                   "dkv Hd=128": 1.372, "dq Hd=64": 4.54, "dq Hd=128": 0.842}
+# the (B, S) at which each head dim's earlier-design time was taken
+PREV_DESIGN_SHAPE = {64: (4, 2048), 128: (1, 1024)}
 # B3's warm times per (M, K, N) before the split-K / wgmma redesign, with
 # one mma.sync body for every M: PERF.md section 6, the earlier design's
 # times in the kernel table (H100 80GB HBM3, 700 W, this script); shapes
@@ -257,6 +284,32 @@ LORA_PREFIX = 300
 # 2-slot engine on the same weights, whose decode takes the K-expert
 # gather (2 x 2 x 2 <= 8 experts) where 8 slots take the dispatch
 MOE_GATHER_PROMPTS = (40, 300, 700, 1500)
+# the training phases of the LoRA and MoE families, each on one seeded
+# batch of TRAIN_B x TRAIN_S fed through prefetch_to_device, TRAIN_STEPS
+# counted steps (tokens/s over all but the first, which holds the first
+# call's set-up), then one profiled step:
+# - "lora_train": a LoRA fine-tune of the bf16 Llama-3-8B engine phases'
+#   params at full width and depth (lora_config(): rank 16, alpha 32,
+#   wq/wk/wv/wo; lora_init's zero B), adamw(LORA_TRAIN_LR), chunked CE
+#   TRAIN_CHUNK, remat "dots"; then the trained adapter served merged
+#   (merge_lora -> a new engine) and banked (registered into the LoRA
+#   phase's engine) on LORA_SERVE_PROMPTS;
+# - "moe_train": Mixtral-8x7B's width at MOE_TRAIN_LAYERS of its 32 layers
+#   (full-Adam state for 32 layers is ~560 GB), bf16, default_optimizer
+#   with the 1B phase's 2 warm-up steps, moe_loss; then one lora_loss step
+#   over the trained MoE base (rank 16, wq/wv: moe_loss by default).
+# Kernel path vs plain path: the LoRA step-0 loss in bf16 within LOSS_ABS;
+# adapter gradients (LoRA, 2 layers at full width) and every leaf's
+# gradient and the loss (MoE, the same 2 layers), fp32, B=1, S=512, each
+# leaf's largest |diff| within TRAIN_GRAD_REL of its largest entry: both
+# paths compute the same fp32 math and differ in the order of the
+# attention sums (1e-6 relative per op), carried back through 2 layers;
+# the MoE check first asserts that both paths routed alike
+LORA_TRAIN_LR, LORA_TRAIN_SEED = 1e-3, 21
+LORA_SERVE_PROMPTS = (40, 300, 700, 1000)
+MOE_TRAIN_LAYERS = 2
+MOE_LORA_TARGETS = ("wq", "wv")
+TRAIN_GRAD_REL, TRAIN_CHECK_S = 1e-4, 512
 # the speculative phases (serve/spec_engine.py): spec_k 4 on the engine
 # phases' grid with chunked prefill, a Llama-3.2-1B-shape draft (bf16, its
 # own seed) or the target as its own draft; the engine phases' 12 prompts,
@@ -693,14 +746,18 @@ def check_q4_shapes(torch, ops_q4, shapes, seed):
 
 
 def check_train_kernels(torch, F, ops_attn):
-    """A1 with its LSE, A2 and A3, causal, at the training shape (B=4,
-    S=2048, N=32, NKV=8, Hd=64) and at Hd=128 (B=1, S=1024): bf16 and fp32
+    """A1 with its LSE, A2 and A3, causal, at the 1B training shape (B=4,
+    S=2048, N=32, NKV=8, Hd=64), at the Hd=128 training shape of the LoRA
+    and MoE phases (B=4, S=2048) and at Hd=128, B=1, S=1024: bf16 and fp32
     against the plain versions, then bf16 times. Returns the kernels-line
-    records of the training shape."""
+    records of the 1B training shape, each with the Hd=128 training
+    shape's under ``train_hd128``."""
     from kubetorch_tpu_torch.ops.tolerance import LSE_ATOL
     gen = torch.Generator(device="cuda").manual_seed(4)
     recs = {}
-    for b, s, nh, nkv, hd in ((TRAIN_B, TRAIN_S, 32, 8, 64), (1, 1024, 32, 8, 128)):
+    for b, s, nh, nkv, hd in ((TRAIN_B, TRAIN_S, 32, 8, 64),
+                              (TRAIN_B, TRAIN_S, 32, 8, 128),
+                              (1, 1024, 32, 8, 128)):
         shape = f"B={b} S={s} N={nh} NKV={nkv} Hd={hd}"
         scale = hd ** -0.5
         base = [torch.randn(b, s, n, hd, generator=gen, device="cuda")
@@ -764,22 +821,26 @@ def check_train_kernels(torch, F, ops_attn):
             redesign = {}
             if name in fma:      # A1, A2 and A3: the tensor-core bodies
                 redesign = dict(fp32_fma_body_ms=fma[name])
+            prev = ""
+            if redesign and PREV_DESIGN_SHAPE[hd] == (b, s):
+                prev = (f" prev_design_bf16_ms={PREV_DESIGN_MS[f'{name} Hd={hd}']}"
+                        f" (fp32-FMA body in bf16, PERF.md, not this run)")
             print(f"kernel flash_{name} {shape} bf16 causal: ms={ms} "
                   f"plain_ms={plain} library_ms={lib} ({lib_name[name]}) "
                   f"bound_ms={b_ms} "
                   f"({b_by}; {nbytes} bytes, {flops} flops) "
                   f"tflops={rate['tflops']} bound_share={rate['bound_share']}"
                   + (f" fp32_fma_body_ms={fma[name]} (fp32 inputs, measured)"
-                     f" prev_design_bf16_ms={PREV_DESIGN_MS[f'{name} Hd={hd}']}"
-                     f" (fp32-FMA body in bf16, PERF.md, not this run)"
-                     if redesign else ""),
+                     if redesign else "") + prev,
                   flush=True)
+            rec = dict(max_abs_err=errs[name][0], ms=ms, plain_ms=plain,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                       bytes=nbytes, flops=flops, **rate, **redesign,
+                       shape=f"{shape} bf16 causal")
             if hd == 64:
-                recs[name] = dict(max_abs_err=errs[name][0], ms=ms,
-                                  plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=lib, bytes=nbytes, flops=flops,
-                                  **rate, **redesign,
-                                  shape=f"{shape} bf16 causal")
+                recs[name] = rec
+            elif b == TRAIN_B:
+                recs[name]["train_hd128"] = rec
         print(f"kernel flash_fwd {shape} bf16 causal: ms_without_lse={t_fwd} "
               f"ms_with_lse={t_lse}", flush=True)
         if hd == 64:
@@ -880,7 +941,15 @@ def drive_engine(torch, ops_attn, ops_dec, card):
     profile_decode(torch, eng, prompts)
     features = drive_engine_features(torch, ops_attn, ops_dec, params, cfg, eng,
                                      card)
-    lora = drive_lora(torch, ops_attn, ops_dec, params, cfg, eng, card)
+    lora, lora_eng = drive_lora(torch, ops_attn, ops_dec, params, cfg, eng, card)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_train = drive_lora_train(torch, ops_attn, ops_dec, params, cfg,
+                                  lora_eng, card)
+    del lora_eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
     draft, dcfg = spec_draft(torch)
     spec_n, spec = {}, {}
@@ -900,7 +969,7 @@ def drive_engine(torch, ops_attn, ops_dec, card):
     gc.collect()
     torch.cuda.empty_cache()
     spec["spec_exact"] = drive_spec_exact(torch, ops_attn, ops_dec, card)
-    return flash_n, decode_n, features, lora, spec_n, spec
+    return flash_n, decode_n, features, lora, lora_train, spec_n, spec
 
 
 class Launches:
@@ -1509,9 +1578,10 @@ def profile_decode(torch, eng, prompts) -> None:
         h.result(timeout=0)
 
 
-def profile_steps(torch, label, run, n) -> None:
+def profile_steps(torch, label, run, n, groups=None) -> None:
     """torch.profiler over ``n`` calls of ``run``: wall and device-busy ms
-    per step, the busy share, and the top device kernels."""
+    per step, the busy share, and the top device kernels; with ``groups``
+    (name -> substrings of kernel names), each group's share of busy."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1541,6 +1611,10 @@ def profile_steps(torch, label, run, n) -> None:
         print(f"profile: {dev_us(e) / n / 1e3:.4f} ms/step "
               f"({dev_us(e) / busy_us:.3f} of busy) x{e.count // n}/step "
               f"{e.key[:90]}", flush=True)
+    for name, keys in (groups or {}).items():
+        us = sum(dev_us(e) for e in events if any(k in e.key for k in keys))
+        print(f"profile: {label}: {name}: {us / n / 1e3} ms/step, "
+              f"{us / busy_us} of busy (kernels named {keys})", flush=True)
 
 
 def seeded_adapter(torch, params, lcfg, seed):
@@ -1586,7 +1660,8 @@ def drive_lora(torch, ops_attn, ops_dec, params, cfg, plain, card):
     """Multi-LoRA on the bf16 Llama-3-8B engine at full width and depth,
     on the engine phase's params; ``plain`` (that phase's engine, no
     banks) runs the same traffic on the base model. Returns the launches
-    of the adapter runs together."""
+    of the adapter runs together, and the engine with its banks (the
+    trained adapter of the lora_train phase is served on it)."""
     from kubetorch_tpu_torch.models.lora import merge_lora
     from kubetorch_tpu_torch.serve import GenerationEngine
     from kubetorch_tpu_torch.serve import engine as engine_mod
@@ -1695,11 +1770,216 @@ def drive_lora(torch, ops_attn, ops_dec, params, cfg, plain, card):
             or len(hb.result(timeout=0)) != 4 or len(ha.result(timeout=0)) != 4:
         fail("lora: the adapter-keyed prefix was not matched as expected")
     total = {k: got[k] + prefix_n[k] for k in got}
-    del eng, adapters
+    del adapters
     gc.collect()
     torch.cuda.empty_cache()
     print(f"lora: phase wall {time.perf_counter() - t_phase:.1f}s", flush=True)
-    return total
+    return total, eng
+
+
+def leaf_hashes(torch, tree):
+    """One int64 per leaf of ``tree``, from the leaf's bits: the sum of
+    its 2- or 4-byte words weighted by position mod 65521, wrapping, so
+    any changed word (or two swapped) moves it. Computed on the card in
+    chunks."""
+    from kubetorch_tpu_torch.train.optim import tree_leaves
+    out = []
+    for t in tree_leaves(tree):
+        words = t.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[t.element_size()])
+        h = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i, c in enumerate(words.split(1 << 26)):
+            w = (torch.arange(c.numel(), device=c.device, dtype=torch.int64)
+                 + i * (1 << 26)) % 65521 + 1
+            h += (c.to(torch.int64) * w).sum()
+        out.append(int(h))
+    return out
+
+
+def host_batch(torch, vocab, seed):
+    """One TRAIN_B x TRAIN_S batch in host memory, tokens from a seed."""
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (TRAIN_B, TRAIN_S)))
+    return {"tokens": toks, "targets": toks.roll(-1, 1)}
+
+
+def run_train_steps(torch, ops_attn, label, step, state, batch, n_layers):
+    """TRAIN_STEPS steps of ``step`` on ``batch`` fed through
+    prefetch_to_device, with the launch counts set to 0 just before and
+    read just after, the peak memory and the step histogram's compute
+    observations. Gates: finite losses, a lower last loss than the first,
+    A1 twice per layer and step (remat), A2 and A3 once, one compute
+    observation per step. Returns (state, losses, record)."""
+    from kubetorch_tpu_torch import telemetry
+    from kubetorch_tpu_torch.train import prefetch_to_device
+
+    hist = telemetry.train_metrics()["step_seconds"]
+    seen0 = hist.count(phase="compute")
+    fa = ops_attn.flash_attention
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, t1 = [], None
+    batches = prefetch_to_device(itertools.repeat(batch, TRAIN_STEPS), size=2)
+    for i, b in enumerate(batches):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seen = hist.count(phase="compute") - seen0
+    losses = [float(x) for x in losses]
+    print(f"{label}: losses {losses}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: loss did not fall: first {losses[0]}, last {losses[-1]}")
+    want = (2 * n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS,
+            n_layers * TRAIN_STEPS)
+    check_launches(f"{label} (A1, A2, A3) over {TRAIN_STEPS} steps", counts, want)
+    print(f"{label}: kt_train_step_seconds{{phase=\"compute\"}} observations "
+          f"{seen} over {TRAIN_STEPS} steps", flush=True)
+    if seen != TRAIN_STEPS:
+        fail(f"{label}: {seen} compute observations over {TRAIN_STEPS} steps")
+    tps = TRAIN_B * TRAIN_S * (TRAIN_STEPS - 1) / dt
+    rec = dict(launches=counts, tokens_per_s=tps,
+               ms_per_step=dt / (TRAIN_STEPS - 1) * 1e3, peak_memory_gb=peak_gb,
+               losses=losses)
+    print(f"{label}: tokens_per_s={tps} ms_per_step={rec['ms_per_step']} "
+          f"(steps 2-{TRAIN_STEPS}) peak_memory_gb={peak_gb} "
+          f"batch={TRAIN_B}x{TRAIN_S}", flush=True)
+    return state, losses, rec
+
+
+def max_leaf_rel(torch, got, want) -> float:
+    """Largest over leaves of max |got - want| / max |want|."""
+    from kubetorch_tpu_torch.train.optim import tree_leaves
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def drive_lora_train(torch, ops_attn, ops_dec, params, cfg, lora_eng, card):
+    """A LoRA fine-tune of the bf16 Llama-3-8B params at full width and
+    depth, then the trained adapter served merged and banked (on the LoRA
+    phase's engine ``lora_eng``). Returns the kernels-line records."""
+    from kubetorch_tpu_torch.models.llama import llama_init
+    from kubetorch_tpu_torch.models.lora import lora_init, lora_loss, merge_lora
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+    from kubetorch_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    lcfg = lora_config()
+    base_hash = leaf_hashes(torch, params)
+    opt = adamw(LORA_TRAIN_LR)
+    state = init_train_state(lora_init(params, lcfg, seed=LORA_TRAIN_SEED), opt)
+    step = make_train_step(lora_loss(params, cfg, lcfg), opt)
+    batch = host_batch(torch, cfg.vocab_size, seed=LORA_TRAIN_SEED)
+    tok, tgt = batch["tokens"].cuda(), batch["targets"].cuda()
+    with torch.no_grad():
+        plain0 = float(lora_loss(params, dataclasses.replace(cfg, attn_impl="xla"),
+                                 lcfg)(state.params, tok, tgt))
+    print(f"lora_train: Llama-3-8B base ({cfg.param_count()} params, bf16, "
+          f"frozen), adapters rank {lcfg.rank} on {lcfg.targets} "
+          f"({sum(t.numel() for t in state.params['layers'].values())} "
+          f"params), adamw({LORA_TRAIN_LR}), remat dots, chunked CE "
+          f"{TRAIN_CHUNK} card={card}", flush=True)
+    state, losses, rec = run_train_steps(torch, ops_attn, "lora_train", step,
+                                         state, batch, L)
+    diff = abs(losses[0] - plain0)
+    print(f"lora_train: step-0 loss kernel vs plain path, bf16: {losses[0]} "
+          f"vs {plain0}, |diff|={diff} tol={LOSS_ABS}", flush=True)
+    if not diff <= LOSS_ABS:
+        fail(f"lora_train: step-0 loss differs from the plain path by {diff}")
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, {"tokens": tok, "targets": tgt})
+
+    profile_steps(torch, f"lora_train: 1 step, batch {TRAIN_B}x{TRAIN_S}",
+                  one_step, 1, groups={
+                      "attention (A1, A2, A3)": ("_sm90",),
+                      "cuBLAS GEMMs": ("nvjet", "gemm", "sm90_xmma")})
+    same = leaf_hashes(torch, params) == base_hash
+    print(f"lora_train: base leaves bit-identical after "
+          f"{TRAIN_STEPS + 1} steps (leaf hashes): {same}", flush=True)
+    if not same:
+        fail("lora_train: a base leaf changed")
+    trained = state.params
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # adapter gradients, kernel path vs plain path, fp32 at 2 layers
+    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                                max_seq_len=TRAIN_CHECK_S)
+    base32 = llama_init(small, seed=3, device="cuda")
+    ad32 = seeded_adapter(torch, base32, lcfg, seed=5)
+    check = {"tokens": tok[:1, :TRAIN_CHECK_S], "targets": tgt[:1, :TRAIN_CHECK_S]}
+    grads = {}
+    for impl in ("auto", "xla"):
+        c = dataclasses.replace(small, attn_impl=impl)
+        _, grads[impl] = make_train_step(lora_loss(base32, c, lcfg)) \
+            .loss_and_grads(ad32, check)
+    worst = max_leaf_rel(torch, grads["auto"], grads["xla"])
+    print(f"lora_train: adapter grads kernel vs plain path, fp32, 2 layers, "
+          f"B=1 S={TRAIN_CHECK_S}: max per-leaf |diff| / max |plain| = {worst} "
+          f"tol={TRAIN_GRAD_REL}", flush=True)
+    if not worst <= TRAIN_GRAD_REL:
+        fail(f"lora_train: kernel-path adapter grads differ: {worst}")
+    del base32, ad32, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve the trained adapter merged, then banked
+    rng = np.random.default_rng(LORA_TRAIN_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in LORA_SERVE_PROMPTS]
+    merged = merge_lora(params, trained, lcfg)
+    eng = GenerationEngine(merged, cfg, **FEATURE_GRID, device="cuda")
+    launches = Launches(ops_attn, ops_dec)
+    serve_n = {}
+    outs, logits = {}, {}
+    for way, e in (("merged", eng), ("banked", lora_eng)):
+        aid = None if way == "merged" else e.register_adapter(trained, lcfg)
+        steps0 = e.stats().decode_steps
+        launches.zero()
+        with recorded_logits(engine_mod, "_prefill_logits") as first:
+            hs = [e.submit(p, max_new_tokens=MAX_NEW, adapter_id=aid)
+                  for p in prompts]
+            drain(torch, e)
+        got = launches.read()
+        n_steps = e.stats().decode_steps - steps0
+        check_launches(f"lora_serve {way}", got, dict(
+            flash_fwd=L * len(prompts), decode_attention=L * n_steps,
+            decode_attention_quant=0))
+        outs[way] = [h.result(timeout=0) for h in hs]
+        if any(len(o) != MAX_NEW for o in outs[way]):
+            fail(f"lora_serve {way}: tokens {[len(o) for o in outs[way]]}")
+        logits[way], serve_n[way] = first, got
+    for i, p in enumerate(prompts):
+        check_feature_logits(torch, f"lora_serve banked request {i} "
+                             f"({len(p)} tokens) vs the merged tree",
+                             logits["banked"][i], logits["merged"][i],
+                             outs["banked"][i][0])
+    agree = sum(a == b for a, b in zip(outs["merged"], outs["banked"]))
+    print(f"lora_serve: the trained adapter served merged (merge_lora -> "
+          f"engine) and banked (registered beside the LoRA phase's "
+          f"adapters): {len(prompts)} requests of {MAX_NEW} greedy tokens "
+          f"each way, {agree}/{len(prompts)} with equal tokens card={card}",
+          flush=True)
+    del eng, merged, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"lora_train: phase wall {wall:.1f}s", flush=True)
+    return dict(**rec, step0_loss_plain=plain0, grad_rel=worst,
+                serve=serve_n, phase_wall_s=wall)
 
 
 def drive_lora_q4(torch, ops_attn, ops_dec, ops_q4, params, cfg, card):
@@ -2343,6 +2623,178 @@ def drive_moe(torch, ops_attn, ops_dec, ops_q4, card):
                                        peak_gb=peak_gb)
 
 
+@contextlib.contextmanager
+def recorded_routing(moe_mod):
+    """Every expert choice (``_route``'s top-k indices) and kept-pair mask
+    (``_dispatch``'s) the MoE layers make, in call order."""
+    real_route, real_dispatch = moe_mod._route, moe_mod._dispatch
+    rec = {"idx": [], "kept": []}
+
+    def route(*a, **kw):
+        out = real_route(*a, **kw)
+        rec["idx"].append(out[2].detach().clone())
+        return out
+
+    def dispatch(*a, **kw):
+        out = real_dispatch(*a, **kw)
+        rec["kept"].append(out[2].clone())
+        return out
+
+    moe_mod._route, moe_mod._dispatch = route, dispatch
+    try:
+        yield rec
+    finally:
+        moe_mod._route, moe_mod._dispatch = real_route, real_dispatch
+
+
+def same_routing(torch, a, b) -> bool:
+    return all(len(a[k]) == len(b[k]) and all(torch.equal(x, y)
+                                              for x, y in zip(a[k], b[k]))
+               for k in ("idx", "kept"))
+
+
+def check_moe_train_paths(torch, cfg):
+    """moe_loss and every leaf's gradient, kernel path vs plain path, fp32
+    at the phase's width and depth, B=1, S=TRAIN_CHECK_S, after asserting
+    that both paths made the same expert choices and kept the same pairs
+    in every layer (forward and remat recompute). Where a near-tie router
+    flips between the paths, the plain path's choices are pinned to the
+    kernel path's (``pinned_routing``) and the check says so."""
+    from kubetorch_tpu_torch.models import moe as moe_mod
+    from kubetorch_tpu_torch.train import make_train_step
+
+    c32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              max_seq_len=TRAIN_CHECK_S)
+    params = moe_mod.moe_init(c32, seed=3, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, TRAIN_CHECK_S))).cuda()
+    batch = {"tokens": tok, "targets": tok.roll(-1, 1)}
+
+    def run(impl):
+        c = dataclasses.replace(c32, attn_impl=impl)
+        return make_train_step(lambda p, t, y: moe_mod.moe_loss(p, t, y, c)) \
+            .loss_and_grads(params, batch)
+
+    with pinned_routing(moe_mod) as replay:
+        with recorded_routing(moe_mod) as r_kernel:
+            lk, gk = run("auto")
+        with recorded_routing(moe_mod) as r_plain:
+            lp, gp = run("xla")
+        pinned = not same_routing(torch, r_kernel, r_plain)
+        if pinned:
+            del gp
+            replay()
+            with recorded_routing(moe_mod) as r_plain:
+                lp, gp = run("xla")
+    routed = same_routing(torch, r_kernel, r_plain)
+    n_pairs = sum(int(k.numel()) for k in r_kernel["kept"])
+    dropped = sum(int((~k).sum()) for k in r_kernel["kept"])
+    print(f"moe_train: routing kernel vs plain path, fp32, "
+          f"{len(r_kernel['idx'])} router calls (forward and recompute): "
+          f"identical {not pinned} (expert choices pinned to the kernel "
+          f"path's: {pinned}); kept pairs identical {routed}; "
+          f"{dropped}/{n_pairs} pairs dropped", flush=True)
+    if not routed:
+        fail("moe_train: the two paths kept different pairs")
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst = max_leaf_rel(torch, gk, gp)
+    print(f"moe_train: loss kernel vs plain path, fp32, {cfg.n_layers} layers, "
+          f"B=1 S={TRAIN_CHECK_S}: {float(lk)} vs {float(lp)} rel={loss_rel}; "
+          f"every leaf's grad (router, expert banks, attention, embed, head, "
+          f"norms): max per-leaf |diff| / max |plain| = {worst} "
+          f"tol={TRAIN_GRAD_REL}", flush=True)
+    if not (loss_rel <= TRAIN_GRAD_REL and worst <= TRAIN_GRAD_REL):
+        fail(f"moe_train: kernel path differs: loss {loss_rel}, grads {worst}")
+    return dict(grad_rel=worst, loss_rel=loss_rel, routing_pinned=pinned)
+
+
+def drive_moe_train(torch, ops_attn, card):
+    """Mixtral-8x7B's width at MOE_TRAIN_LAYERS layers, bf16, through
+    make_train_step and moe_loss; then one lora_loss step over the trained
+    MoE base; then the fp32 kernel-vs-plain check. Returns the
+    kernels-line records."""
+    from kubetorch_tpu_torch.models import moe as moe_mod
+    from kubetorch_tpu_torch.models.lora import LoraConfig, lora_init, lora_loss
+    from kubetorch_tpu_torch.train import (adamw, default_optimizer,
+                                           init_train_state, make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = moe_mod.MoeConfig.mixtral_8x7b(n_layers=MOE_TRAIN_LAYERS,
+                                         max_seq_len=TRAIN_S)
+    opt = default_optimizer(warmup_steps=2)
+    state = init_train_state(moe_mod.moe_init(cfg, seed=0, device="cuda"), opt)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"moe_train: Mixtral-8x7B width, {cfg.n_layers} of 32 layers "
+          f"({cfg.param_count()} params, bf16, {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token}, capacity {cfg.capacity_factor}), "
+          f"default_optimizer, remat dots; params + optimizer state "
+          f"{state_gb} GB card={card}", flush=True)
+    batch = host_batch(torch, cfg.vocab_size, seed=7)
+    tok, tgt = batch["tokens"].cuda(), batch["targets"].cuda()
+    with torch.no_grad():
+        _, aux0 = moe_mod.moe_forward(state.params, tok, cfg)
+    aux0 = float(aux0)
+    print(f"moe_train: router aux (mean over layers) at step 0: {aux0}; "
+          f"weighted {cfg.router_aux_weight * aux0} in the loss", flush=True)
+    if not (math.isfinite(aux0) and aux0 > 0):
+        fail(f"moe_train: router aux {aux0} is not finite and positive")
+    step = make_train_step(lambda p, t, y: moe_mod.moe_loss(p, t, y, cfg), opt)
+    state, _, rec = run_train_steps(torch, ops_attn, "moe_train", step, state,
+                                    batch, cfg.n_layers)
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, {"tokens": tok, "targets": tgt})
+
+    # the capacity dispatch and combine move rows by index, the positions
+    # come from a cumsum (the embedding lookup and the CE gather share the
+    # index kernels); a flash kernel's name holds "_sm90"
+    profile_steps(torch, f"moe_train: 1 step, batch {TRAIN_B}x{TRAIN_S}",
+                  one_step, 1, groups={
+                      "dispatch (index/scatter/gather/scan kernels)":
+                          ("index", "scatter", "gather", "scan", "Scan"),
+                      "attention (A1, A2, A3)": ("_sm90",),
+                      "cuBLAS GEMMs": ("nvjet", "gemm", "sm90_xmma")})
+    params = state.params
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one LoRA step over the trained MoE base: lora_loss takes moe_loss
+    lcfg = LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA, targets=MOE_LORA_TARGETS)
+    lopt = adamw(LORA_TRAIN_LR)
+    lstate = init_train_state(lora_init(params, lcfg, seed=1), lopt)
+    lstep = make_train_step(lora_loss(params, cfg, lcfg), lopt)
+    fa = ops_attn.flash_attention
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    lstate, m = lstep(lstate, {"tokens": tok, "targets": tgt})
+    torch.cuda.synchronize()
+    lora_counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    # lora_init's B is 0: it moved only if the step gave it a gradient
+    b_norm = float(sum(v.float().norm() for k, v in lstate.params["layers"].items()
+                       if k.endswith("__b")))
+    print(f"moe_train: lora_loss over the MoE base (rank {lcfg.rank}, "
+          f"{lcfg.targets}, moe_loss by default): loss {float(m['loss'])}, "
+          f"|B| after one step {b_norm}", flush=True)
+    L = cfg.n_layers
+    check_launches("moe_lora (A1, A2, A3), one step", lora_counts,
+                   (2 * L, L, L))
+    if not (math.isfinite(float(m["loss"])) and b_norm > 0):
+        fail("moe_train: the LoRA step over the MoE base moved no adapter")
+    del params, lstate, lstep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec.update(check_moe_train_paths(torch, cfg), aux=aux0,
+               lora_launches=lora_counts, state_gb=state_gb)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"moe_train: phase wall {rec['phase_wall_s']:.1f}s", flush=True)
+    return rec
+
+
 def drive_training(torch, ops_attn, card):
     """Llama-3.2-1B's shape, full width and depth, bf16, through
     make_train_step: warm-up steps, then timed steps with the launch
@@ -2504,7 +2956,7 @@ def main() -> None:
     q4_window = check_q4_shapes(torch, ops_q4, Q4_WINDOW_SHAPES, seed=9)
     train_k = check_train_kernels(torch, F, ops_attn)
     t = time.perf_counter()
-    flash_n, decode_n, feat_n, lora_n, spec_n, spec = drive_engine(
+    flash_n, decode_n, feat_n, lora_n, lora_train, spec_n, spec = drive_engine(
         torch, ops_attn, ops_dec, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2517,14 +2969,23 @@ def main() -> None:
     moe_n, moe_gather_n, _ = drive_moe(torch, ops_attn, ops_dec, ops_q4, card)
     gc.collect()
     torch.cuda.empty_cache()
+    moe_train = drive_moe_train(torch, ops_attn, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_n, train = drive_training(torch, ops_attn, card)
+    trains = {"lora_train": lora_train, "moe_train": moe_train}
+
+    def train_launches(i):
+        return {k: dict(launches=r["launches"][i]) for k, r in trains.items()}
 
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_fwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:44",
              launches=train_n[0], path="training (forward with LSE, and "
-             "again under remat)", **train_k["fwd"],
+             "again under remat)", **train_k["fwd"], **train_launches(0),
+             lora_serve=dict(launches={w: n["flash_fwd"] for w, n in
+                                       lora_train["serve"].items()}),
              serving=dict(launches=flash_n, **flash),
              serving_quant=dict(launches=quant_n["flash_fwd"]),
              engine_features=dict(launches=feat_n["flash_fwd"]),
@@ -2541,6 +3002,8 @@ def main() -> None:
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
              launches=decode_n, path="serving", **dec,
+             lora_serve=dict(launches={w: n["decode_attention"] for w, n in
+                                       lora_train["serve"].items()}),
              engine_features=dict(launches=feat_n["decode_attention"]),
              lora=dict(launches=lora_n["decode_attention"]),
              spec=dict(launches=spec_n["spec"]["decode_attention"]),
@@ -2550,11 +3013,13 @@ def main() -> None:
         dict(name="flash_bwd_dq", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:140",
-             launches=train_n[1], path="training", **train_k["dq"]),
+             launches=train_n[1], path="training", **train_k["dq"],
+             **train_launches(1)),
         dict(name="flash_bwd_dkv", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:180",
-             launches=train_n[2], path="training", **train_k["dkv"]),
+             launches=train_n[2], path="training", **train_k["dkv"],
+             **train_launches(2)),
         dict(name="decode_attention_quant", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
@@ -2579,6 +3044,8 @@ def main() -> None:
              verify_window=q4_window),
     ]
     print(f"spec: {json.dumps(spec)}", flush=True)
+    print(f"train: {json.dumps(dict(llama_1b=train, **trains))} card={card}",
+          flush=True)
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

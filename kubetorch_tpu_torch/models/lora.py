@@ -1,5 +1,5 @@
-"""LoRA adapters for serving, the counterpart of
-``kubetorch_tpu/models/lora.py``.
+"""LoRA adapters, the counterpart of ``kubetorch_tpu/models/lora.py``:
+fine-tuning against a frozen base and serving.
 
 An adapter holds per-target low-rank factors ``W' = W + (α/r)·A·B``: for a
 target ``t`` of shape (L, d_in, d_out), ``t__a`` (L, d_in, r) and ``t__b``
@@ -10,14 +10,22 @@ in fp32 (``lora_delta``), so different slots run different adapters
 through one decode step (``serve.engine``). Zero factors add exactly 0.0,
 which keeps base traffic beside adapters bit-identical.
 
-Not ported here: ``lora_loss`` (training).
+Training (``lora_loss``) merges in the graph each step, so gradients and
+optimizer state exist only for the adapters; the base is closed over and
+never requires grad:
+
+    lcfg  = LoraConfig(rank=8, targets=("wq", "wv"))
+    adap  = lora_init(params, lcfg, seed=1)
+    loss  = lora_loss(params, cfg, lcfg)
+    state = init_train_state(adap, opt)
+    step  = make_train_step(loss, optimizer=opt)
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -79,6 +87,29 @@ def merge_lora(params: Dict[str, Any], adapters: Dict[str, Any],
         delta = torch.bmm(a.float(), b.float()) * lora_cfg.scale
         merged_layers[t] = (w.float() + delta).to(w.dtype)
     return {**params, "layers": merged_layers}
+
+
+def lora_loss(base_params: Dict[str, Any], cfg, lora_cfg: LoraConfig,
+              loss_fn: Optional[Callable] = None) -> Callable:
+    """``fn(adapters, tokens, targets) -> scalar`` for
+    ``train.make_train_step``: merges in the graph (``merge_lora``) and
+    differentiates through the merge, so only the adapters get gradients;
+    ``base_params`` is closed over as it is. ``loss_fn(params, tokens,
+    targets)`` defaults to ``moe_loss`` for an MoE config (the router's aux
+    term included) and to ``llama_loss_chunked`` otherwise."""
+    if loss_fn is None:
+        if hasattr(cfg, "n_experts"):
+            from .moe import moe_loss
+            loss_fn = lambda p, t, y: moe_loss(p, t, y, cfg)  # noqa: E731
+        else:
+            from .llama import llama_loss_chunked
+            loss_fn = lambda p, t, y: llama_loss_chunked(p, t, y, cfg)  # noqa: E731
+
+    def fn(adapters, tokens, targets):
+        return loss_fn(merge_lora(base_params, adapters, lora_cfg), tokens,
+                       targets)
+
+    return fn
 
 
 def adapter_count(adapters: Dict[str, Any]) -> int:

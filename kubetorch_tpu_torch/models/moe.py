@@ -1,5 +1,6 @@
-"""Mixtral-style sparse MoE decoder, the serving half of
-``kubetorch_tpu/models/moe.py`` in PyTorch.
+"""Mixtral-style sparse MoE decoder, ``kubetorch_tpu/models/moe.py`` in
+PyTorch: serving (the dispatch, the decode gather) and training
+(``moe_forward`` under autograd, ``moe_loss`` with the router's aux term).
 
 Routing is the JAX package's: softmax over the router's expert logits,
 top-k, gates renormalized over the chosen experts, and each (token, k)
@@ -19,14 +20,28 @@ weighted by the gates in fp32. The copies are exact, so the buffer holds
 what the einsum builds. An int8 expert bank (``models.quant``) is
 dequantized one expert's matrices at a time, never the whole bank.
 
+The dispatch's gradient is the JAX one-hot einsums': a kept pair's token
+gets its expert's gradient through the copy into its slot, a dropped or
+padding pair's token none (its row of the buffer, ``capacity``, is read
+back with weight 0, so its gradient is exactly 0; which of the pairs that
+share the row is left there, also on a remat recompute, is read by no
+one). The router gets its gradient through the gates of the kept pairs and
+through ``probs`` in the aux term, none through top-1 or the positions.
+
 ``moe_ffn_decode`` is the decode gather: the K chosen experts' int8
 values and scales are gathered first and only those slices dequantized.
 
+Training: ``moe_forward`` under grad mode runs each layer inside a
+checkpoint when ``cfg.remat`` is on, with the port's ``"dots"`` policy
+(``models/common.py``), which saves every matrix product's output. JAX's
+``dots_with_no_batch_dims_saveable`` does not save the expert einsums
+(their batch dim ``e``) and recomputes them; the port's per-expert 2-D
+products are saved. The values and gradients are the same; the port keeps
+three (B, C + 1, F or D) products per expert and layer more.
+
 Not ported here: the shard_map axes (``ep_axis``/``tp_axis``) of the
-parallelism queue, which raise, and the training half: ``moe_loss`` with
-the config's ``remat`` and ``router_aux_weight``, and
-``context_chunked_routing`` (pipeline stages). ``config_from_dict``
-ignores those keys.
+parallelism queue, which raise, and ``context_chunked_routing`` (pipeline
+stages), which ``config_from_dict`` ignores.
 """
 
 from __future__ import annotations
@@ -39,10 +54,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .common import checkpointed
 from .common import config_from_dict as _config_from_dict
-from .common import resolve_device
-from .llama import (LlamaConfig, apply_rope, attention, layer_weights, rmsnorm,
-                    rope_freqs)
+from .common import resolve_device, resolve_remat_policy
+from .llama import LlamaConfig, apply_rope, attention, rmsnorm, rope_freqs
 from .quant import Q4KEY, QKEY, dequant, is_quantized
 
 
@@ -61,7 +76,9 @@ class MoeConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
+    remat: bool = True
     attn_impl: str = "auto"
+    router_aux_weight: float = 0.01
     # Decode-time fast path: gather only the K selected experts' weights
     # per token instead of streaming all E experts (``moe_ffn_decode``).
     decode_gather_ffn: bool = True
@@ -87,7 +104,8 @@ class MoeConfig:
                            n_kv_heads=self.n_kv_heads, ffn_dim=self.ffn_dim,
                            max_seq_len=self.max_seq_len,
                            rope_theta=self.rope_theta, norm_eps=self.norm_eps,
-                           dtype=self.dtype, attn_impl=self.attn_impl)
+                           dtype=self.dtype, remat=self.remat,
+                           attn_impl=self.attn_impl)
 
     def param_count(self) -> int:
         d, f, L, E = self.dim, self.ffn_dim, self.n_layers, self.n_experts
@@ -305,16 +323,51 @@ def _moe_layer(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any],
     return x + ffn_out, aux
 
 
-@torch.no_grad()
+def _unbind_layers(tree: Any) -> Any:
+    """Each stacked leaf of ``params["layers"]`` unbound once into its
+    per-layer views (``experts`` is a nested dict)."""
+    if isinstance(tree, dict):
+        return {k: _unbind_layers(v) for k, v in tree.items()}
+    return tree.unbind(0)
+
+
+def _layer_of(per_layer: Any, i: int) -> Any:
+    if isinstance(per_layer, dict):
+        return {k: _layer_of(v, i) for k, v in per_layer.items()}
+    return per_layer[i]
+
+
 def moe_forward(params: Dict[str, Any], tokens: torch.Tensor,
                 cfg: MoeConfig):
-    """tokens (B, S) → (logits (B, S, V) fp32, aux loss scalar)."""
+    """tokens (B, S) → (logits (B, S, V) fp32, aux loss scalar: the mean
+    over layers).
+
+    Under grad mode each layer runs inside a checkpoint (``"dots"``) when
+    ``cfg.remat`` is on. Each stacked leaf is unbound once before the
+    loop, as ``llama_hidden`` does: indexing it per layer would give each
+    layer's backward a zero-filled gradient of the whole leaf."""
     x = params["embed"][tokens].to(cfg.dtype)
     freqs = rope_freqs(cfg, tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    layer = checkpointed(lambda x, lw: _moe_layer(cfg, x, lw, freqs),
+                         resolve_remat_policy("dots" if remat else None))
+    per_layer = _unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        x, a = _moe_layer(cfg, x, layer_weights(params, i), freqs)
+        x, a = layer(x, _layer_of(per_layer, i))
         aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].to(cfg.dtype)).float()
     return logits, aux / cfg.n_layers
+
+
+def moe_loss(params: Dict[str, Any], tokens: torch.Tensor,
+             targets: torch.Tensor, cfg: MoeConfig) -> torch.Tensor:
+    """Next-token cross-entropy over the full vocabulary (fp32
+    log-softmax, mean over all positions) plus ``router_aux_weight`` times
+    the layers' mean aux load-balancing loss, as the JAX package's
+    ``moe_loss``."""
+    logits, aux = moe_forward(params, tokens, cfg)
+    logp = F.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -ll.mean() + cfg.router_aux_weight * aux

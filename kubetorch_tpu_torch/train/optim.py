@@ -1,12 +1,17 @@
 """The port's own copy of the optax pieces the JAX train step uses:
-``chain``, ``clip_by_global_norm``, ``adamw`` and
+``chain``, ``clip_by_global_norm``, ``adam``, ``adamw`` and
 ``warmup_cosine_decay_schedule``, as plain functions on dicts of tensors.
 
 A transformation is an ``init(params) -> state`` /
-``update(updates, state, params) -> (updates, state)`` pair, and states
-nest as optax's do (a chain's state is the tuple of its members'), so a
-JAX optimizer state carries across leaf for leaf
-(``models/convert.py:train_state_from_numpy``). The numerics are optax's:
+``update(updates, state, params, inplace=False) -> (updates, state)``
+pair, and states nest as optax's do (a chain's state is the tuple of its
+members'), so a JAX optimizer state carries across leaf for leaf
+(``models/convert.py:train_state_from_numpy``). ``inplace=True`` is the
+counterpart of the JAX step's buffer donation: each new leaf of the
+updates and of the state is written into the leaf it replaces as soon as
+it is computed (where dtype and shape agree), so the update holds one
+leaf's temporaries at a time instead of a second copy of every tree. The
+bits are the same either way. The numerics are optax's:
 
 - ``clip_by_global_norm``: every update scaled by max_norm / norm when the
   global norm reaches max_norm, chosen on the device (no host sync);
@@ -72,6 +77,24 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))
 
 
+def _assign(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` into ``old`` where they agree in dtype and shape (and
+    keep ``old``); otherwise the new tensor stands, as it would in JAX."""
+    if old is new:
+        return old
+    if old.dtype == new.dtype and old.shape == new.shape:
+        return old.copy_(new)
+    return new
+
+
+def _emit(fn: Callable, inplace: bool, tree: Any, *rest: Any) -> Any:
+    """``tree_map(fn, tree, *rest)``; with ``inplace``, each result is
+    written into ``tree``'s leaf at once (``_assign``)."""
+    if not inplace:
+        return tree_map(fn, tree, *rest)
+    return tree_map(lambda t, *r: _assign(t, fn(t, *r)), tree, *rest)
+
+
 def _safe_increment(count: torch.Tensor) -> torch.Tensor:
     """count + 1, saturating at the int32 maximum (optax's safe_increment)."""
     top = torch.iinfo(torch.int32).max
@@ -88,10 +111,10 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     def init(params):
         return tuple(t.init(params) for t in transforms)
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, inplace=False):
         new_state = []
         for t, s in zip(transforms, state):
-            updates, s = t.update(updates, s, params)
+            updates, s = t.update(updates, s, params, inplace=inplace)
             new_state.append(s)
         return updates, tuple(new_state)
 
@@ -99,14 +122,14 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, inplace=False):
         norm = global_norm(updates)
         keep = norm < max_norm
 
         def clip(t):
             return torch.where(keep, t, (t / norm.to(t.dtype)) * max_norm)
 
-        return tree_map(clip, updates), state
+        return _emit(clip, inplace, updates), state
 
     return GradientTransformation(lambda params: EmptyState(), update)
 
@@ -120,9 +143,10 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             mu=tree_map(lambda p: torch.zeros_like(p, dtype=mu_dtype or p.dtype), params),
             nu=tree_map(torch.zeros_like, params))
 
-    def update(updates, state, params=None):
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, updates, state.mu)
-        nu = tree_map(lambda g, n: (1 - b2) * (g * g) + b2 * n, updates, state.nu)
+    def update(updates, state, params=None, inplace=False):
+        mu = _emit(lambda m, g: (1 - b1) * g + b1 * m, inplace, state.mu, updates)
+        nu = _emit(lambda n, g: (1 - b2) * (g * g) + b2 * n, inplace, state.nu,
+                   updates)
         count = _safe_increment(state.count)
         # 1 - decay**count in fp32, then divided in each moment's own type
         bc1 = 1 - b1 ** count.float()
@@ -131,7 +155,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         def direction(m, n):
             return (m / bc1.to(m.dtype)) / (torch.sqrt(n / bc2.to(n.dtype) + eps_root) + eps)
 
-        updates = tree_map(direction, mu, nu)
+        updates = _emit(lambda g, m, n: direction(m, n), inplace, updates, mu, nu)
         if mu_dtype is not None:
             mu = tree_map(lambda m: m.to(mu_dtype), mu)
         return updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
@@ -140,10 +164,11 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 
 def add_decayed_weights(weight_decay: float = 0.0) -> GradientTransformation:
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, inplace=False):
         if params is None:
             raise ValueError("add_decayed_weights needs the params")
-        return tree_map(lambda g, p: g + weight_decay * p, updates, params), state
+        return _emit(lambda g, p: g + weight_decay * p, inplace, updates,
+                     params), state
 
     return GradientTransformation(lambda params: EmptyState(), update)
 
@@ -156,17 +181,25 @@ def scale_by_learning_rate(learning_rate: Union[float, Schedule]
         def init(params):
             return ScaleByScheduleState(count=_scalar_zero(params))
 
-        def update(updates, state, params=None):
+        def update(updates, state, params=None, inplace=False):
             step_size = -learning_rate(state.count)
-            updates = tree_map(lambda g: step_size.to(g.dtype) * g, updates)
+            updates = _emit(lambda g: step_size.to(g.dtype) * g, inplace, updates)
             return updates, ScaleByScheduleState(count=_safe_increment(state.count))
 
         return GradientTransformation(init, update)
 
-    def update_const(updates, state, params=None):
-        return tree_map(lambda g: g * -learning_rate, updates), state
+    def update_const(updates, state, params=None, inplace=False):
+        return _emit(lambda g: g * -learning_rate, inplace, updates), state
 
     return GradientTransformation(lambda params: EmptyState(), update_const)
+
+
+def adam(learning_rate: Union[float, Schedule], b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0,
+         mu_dtype: Optional[torch.dtype] = None) -> GradientTransformation:
+    """optax.adam with its defaults: Adam, then the learning rate."""
+    return chain(scale_by_adam(b1, b2, eps, eps_root, mu_dtype),
+                 scale_by_learning_rate(learning_rate))
 
 
 def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9,

@@ -17,13 +17,17 @@ JAX package's:
   global norm of the raw (averaged, unclipped) grads.
 - ``donate=True`` updates params and optimizer state in place, the
   counterpart of the JAX step's buffer donation: the caller's
-  ``TrainState`` tensors are the returned state's. ``donate=False`` leaves
-  them as they were.
+  ``TrainState`` tensors are the returned state's, and each new leaf is
+  written over its old one as soon as it is computed (the optimizer's
+  ``inplace``), so the update never holds two copies of the params or of
+  the optimizer state. ``donate=False`` leaves them as they were.
+
+Each call is observed into ``kt_train_step_seconds{phase="compute"}``
+(``telemetry.train_metrics``) from call to return, as the JAX wrapper
+observes its jitted step; nothing in the window waits for the device.
 
 Not ported yet: a ``mesh`` (and so ``rules`` and ``overlap_grads``), which
-raise ``NotImplementedError`` (parallelism, ROADMAP Queue A item 7), and
-the ``kt_train_step_seconds{phase="compute"}`` observation, which waits
-for the port's copy of ``telemetry`` (ROADMAP Queue A item 1).
+raise ``NotImplementedError`` (parallelism, ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -32,9 +36,10 @@ from typing import Any, Callable, Dict, NamedTuple, Sequence
 
 import torch
 
+from .. import telemetry
 from ..models.common import checkpointed, resolve_remat_policy
-from .optim import (GradientTransformation, adamw, chain, clip_by_global_norm,
-                    global_norm, tree_leaves, tree_map,
+from .optim import (GradientTransformation, _assign, adamw, chain,
+                    clip_by_global_norm, global_norm, tree_leaves, tree_map,
                     warmup_cosine_decay_schedule)
 
 # metric names the step can compute; "step" always rides along
@@ -65,14 +70,6 @@ def init_train_state(params: Any, optimizer=None) -> TrainState:
     device = tree_leaves(params)[0].device
     return TrainState(params=params, opt_state=optimizer.init(params),
                       step=torch.zeros((), dtype=torch.int32, device=device))
-
-
-def _assign(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """Write ``new`` into ``old`` where they agree in dtype and shape (and
-    keep ``old``); otherwise the new tensor stands, as it would in JAX."""
-    if old.dtype == new.dtype and old.shape == new.shape:
-        return old.copy_(new)
-    return new
 
 
 def make_train_step(loss_fn: Callable, optimizer=None, mesh=None, rules=None,
@@ -139,18 +136,26 @@ def make_train_step(loss_fn: Callable, optimizer=None, mesh=None, rules=None,
             # an extra full-tree reduction — opt out via metrics=("loss",)
             m["grad_norm"] = global_norm(grads)
         with torch.no_grad():
-            updates, new_opt = optimizer.update(grads, state.opt_state, state.params)
+            updates, new_opt = optimizer.update(grads, state.opt_state,
+                                                state.params, inplace=donate)
             del grads
-            new_params = tree_map(lambda p, u: p + u.to(p.dtype), state.params,
-                                  updates)
-            del updates
             if donate:
-                new_params = tree_map(_assign, state.params, new_params)
+                new_params = tree_map(lambda p, u: _assign(p, p + u.to(p.dtype)),
+                                      state.params, updates)
                 new_opt = tree_map(_assign, state.opt_state, new_opt)
                 new_step = state.step.add_(1)
             else:
+                new_params = tree_map(lambda p, u: p + u.to(p.dtype),
+                                      state.params, updates)
                 new_step = state.step + 1
+            del updates
         return TrainState(new_params, new_opt, new_step), m
 
-    step.loss_and_grads = loss_and_grads  # type: ignore[attr-defined]
-    return step
+    step_hist = telemetry.train_metrics()["step_seconds"]
+
+    def wrapper(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with telemetry.timed(step_hist, phase="compute"):
+            return step(state, batch)
+
+    wrapper.loss_and_grads = loss_and_grads  # type: ignore[attr-defined]
+    return wrapper

@@ -1070,3 +1070,62 @@ def test_q4_kernel_at_the_verify_window(cuda, k, n):
     assert row_rel_err(got, q4_matmul_ref(x, packed, scale)) \
         <= ROW_RTOL[torch.float32]
     assert torch.equal(got, q4_matmul(x.bfloat16(), packed, scale))
+
+
+def test_prefetch_copies_on_a_side_stream(cuda, monkeypatch):
+    """``prefetch_to_device`` queues its copies on a stream of its own:
+    with the consumer's stream held busy, the side stream finishes the
+    copies while the consumer's is still running, and what the consumer
+    then reads (its stream waits on each batch's event) is the source."""
+    from kubetorch_tpu_torch.train import data as pt_data
+    made = []
+    real = torch.cuda.Stream
+
+    def stream(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(torch.cuda, "Stream", stream)
+    gen = torch.Generator().manual_seed(0)
+    src = [{"tokens": torch.randint(0, 1000, (4, 2048), generator=gen),
+            "targets": torch.randint(0, 1000, (4, 2048), generator=gen)}
+           for _ in range(4)]
+    torch.cuda._sleep(2_000_000_000)          # about a second of spinning
+    it = pt_data.prefetch_to_device(iter(src), size=2, device=cuda)
+    first = next(it)
+    side = made[0]              # the generator's own, made before any copy
+    assert side != torch.cuda.current_stream()
+    side.synchronize()
+    assert not torch.cuda.current_stream().query()
+    got = [first] + list(it)
+    for g, w in zip(got, src):
+        assert g["tokens"].device.type == "cuda"
+        assert torch.equal(g["tokens"].cpu(), w["tokens"])
+        assert torch.equal(g["targets"].cpu(), w["targets"])
+    assert len(got) == len(src)
+
+
+def test_moe_loss_kernel_path_matches_plain(cuda):
+    """``moe_loss`` and its gradients at ``MoeConfig.tiny`` in fp32 with
+    capacity drops: the flash kernels (A1 with LSE, A2, A3; FMA bodies at
+    head dim 16) against the plain attention, with remat; exact launch
+    counts (A1 twice per layer, A2 and A3 once)."""
+    from kubetorch_tpu_torch.models import moe as pm
+    cfg = pm.MoeConfig.tiny(dtype=torch.float32, capacity_factor=0.5)
+    params = pm.moe_init(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = {"tokens": tokens, "targets": tokens.roll(-1, 1)}
+    out = {}
+    for impl in ("auto", "xla"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        step = make_train_step(lambda p, t, y: pm.moe_loss(p, t, y, c))
+        before = _counts()
+        out[impl] = step.loss_and_grads(params, batch)
+        n = tuple(a - b for a, b in zip(_counts(), before))
+        assert n == ((2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+                     if impl == "auto" else (0, 0, 0))
+    (lk, gk), (lp, gp) = out["auto"], out["xla"]
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
