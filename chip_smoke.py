@@ -80,6 +80,22 @@
    (merge_lora -> a new engine) and banked (registered into the LoRA
    phase's engine), first-token logits of the banked requests against the
    merged engine's within LOGITS_REL_L2, exact A1/B1 counts both ways.
+   Then the trained tree goes live ("rollout"): a plain bf16 engine on the
+   base params, running its loop thread, serves LORA_SERVE_PROMPTS; the
+   trainer side hands the merged tree to the host and publish_rollout()s
+   it into an in-memory store (MemStore); a WeightRollout replica builds
+   its ledger (every leaf pulled and hashed, timed alone), then from a
+   second thread polls and swaps while 8 requests decode. Gates: 4 leaves
+   changed (wq/wk/wv/wo) and exactly their bytes fetched, the swap on the
+   engine's loop thread, the replica's fingerprint the trainer's, every
+   in-flight request still in flight at the swap's end and finished with
+   all its tokens, the device-memory rise across the swap at most one
+   leaf, the prompts then giving the merged engine's tokens exactly; a
+   rollback manifest restores the base leaves (on-card hashes equal), the
+   base fingerprint and the base tokens; exact A1/B1 counts, one feedback
+   payload per request. Prints kt_rollout_seconds per phase, the longest
+   token gap of a stream across the swap, the ledger, publish and
+   rollback times, __kt_metrics__ and aot_stats.
    Then speculative decoding (SpeculativeEngine, spec_k 4, the same grid
    with prefill_chunk 512) with a draft of Llama-3.2-1B's shape (bf16,
    its own seed), and again with the target as its own draft: the 12
@@ -143,7 +159,15 @@
    default_optimizer on one batch of 4 x 2048 tokens: warm-up steps, then
    timed steps. Checks finite, falling losses and that A1, A2 and A3
    carried every layer of every step; prints tokens/s, ms/step, MFU, peak
-   memory and a 2-step profile. Then holds the kernel path's gradients to
+   memory and a 2-step profile. Then the run is checkpointed
+   ("checkpoint"): a blocking snapshot and its fingerprint after step k,
+   Checkpointer.maybe_save (async) and step k + 1 at once (donate=True,
+   in place), flush; the commit must fingerprint as the snapshot, and
+   restored onto the card its next step must give step k + 1's loss
+   exactly; a save torn at its commit marker leaves the commit on step k,
+   and the same state saved again moves no bytes; exact A1/A2/A3 counts.
+   Prints the state's bytes, the snapshot stall, commit and restore
+   seconds. Then holds the kernel path's gradients to
    the plain path's (fp32, 2 layers) and its loss (bf16, full depth).
 8. Prints the speculative and training phases' numbers and the script's
    wall time, one
@@ -329,6 +353,9 @@ SPEC_EXACT = dict(layers=2, slots=4, prompts=(40, 200, 300, 1000), new=24, k=3)
 # B3 at the verify window's 72 rows (8 slots x 2 SPEC_K + 1) at Llama-3-8B's
 # four projection shapes
 B1_DRAFT_SHAPES = ("a", "d")
+# the rollout phase: 8 requests of 40-token prompts decode this many
+# tokens each across the live swap (~12 s of steps, the swap ~1 s)
+ROLLOUT_FLIGHT_NEW = 256
 Q4_WINDOW_SHAPES = tuple((8 * (2 * SPEC_K + 1), k, n) for _, k, n in Q4_SHAPES[:4])
 
 
@@ -1973,13 +2000,312 @@ def drive_lora_train(torch, ops_attn, ops_dec, params, cfg, lora_eng, card):
           f"adapters): {len(prompts)} requests of {MAX_NEW} greedy tokens "
           f"each way, {agree}/{len(prompts)} with equal tokens card={card}",
           flush=True)
-    del eng, merged, trained
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rollout = drive_rollout(torch, ops_attn, ops_dec, params, merged, cfg,
+                            prompts, outs["merged"], card)
+    del merged, trained
     gc.collect()
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     print(f"lora_train: phase wall {wall:.1f}s", flush=True)
     return dict(**rec, step0_loss_plain=plain0, grad_rel=worst,
-                serve=serve_n, phase_wall_s=wall)
+                serve=serve_n, phase_wall_s=wall, rollout=rollout)
+
+
+class MemStore:
+    """The port's store protocol (kubetorch_tpu_torch/data_store/
+    commands.py) in this process's memory. It keeps the arrays it is given,
+    with no serialisation copy; its index is the JAX store's (dtype, shape
+    and blake2b per leaf, the structure), and a put skips every leaf whose
+    key already holds the same blake2b. ``fail_json`` makes the next
+    ``put_json`` raise: a commit marker lost mid-commit."""
+
+    def __init__(self):
+        self.kv = {}          # key/path -> (array, blake2b)
+        self.index = {}       # key -> the index's JSON bytes
+        self.json = {}
+        self.fail_json = False
+
+    def put(self, key, tree):
+        import hashlib
+
+        from kubetorch_tpu_torch.data_store import commands as ds
+        leaves = {}
+        ds._flatten(tree, "", leaves)
+        hashes = ds.hash_leaves(leaves)
+        index = {"leaves": {p: {"dtype": str(a.dtype), "shape": list(a.shape),
+                                "kind": "array", "blake2b": hashes[p]}
+                            for p, a in leaves.items()},
+                 "structure": ds._structure_of(tree)}
+        moved = skipped = 0
+        for p, a in leaves.items():
+            held = self.kv.get(f"{key}/{p}")
+            if held is not None and held[1] == hashes[p]:
+                skipped += 1
+                continue
+            self.kv[f"{key}/{p}"] = (a, hashes[p])
+            moved += a.nbytes
+        data = json.dumps(index).encode()
+        self.index[key] = data      # the index last
+        return {"leaves": len(leaves), "bytes": moved, "skipped": skipped,
+                "index_blake2b": hashlib.blake2b(data,
+                                                 digest_size=20).hexdigest()}
+
+    def get(self, key):
+        from kubetorch_tpu_torch.data_store import commands as ds
+        index = json.loads(self.index[key])
+        return ds._unflatten(index["structure"], "", {
+            p: self.kv[f"{key}/{p}"][0] for p in index["leaves"]})
+
+    def put_json(self, key, obj):
+        if self.fail_json:
+            self.fail_json = False
+            raise OSError(f"put_json {key!r}: the store went away")
+        self.json[key] = json.dumps(obj)
+        return {"key": key}
+
+    def get_json(self, key, quorum=False, default=None):
+        v = self.json.get(key)
+        return default if v is None else json.loads(v)
+
+    def get_index(self, key, expect_hash=None):
+        import hashlib
+        data = self.index.get(key)
+        if data is None:
+            return None
+        if expect_hash and hashlib.blake2b(
+                data, digest_size=20).hexdigest() != expect_hash:
+            raise ValueError(f"index of {key!r} does not hash to {expect_hash}")
+        return json.loads(data)
+
+    def get_leaf(self, key, path, meta):
+        held = self.kv.get(f"{key}/{path}")
+        if held is None:
+            return None
+        if held[1] != meta["blake2b"]:
+            raise ValueError(f"{key}/{path} holds other bytes than the index")
+        return held[0]
+
+
+def hist_sums(hist, label: str) -> dict:
+    """{label value: sum of observations} of a port histogram."""
+    with hist._lock:
+        return {dict(zip(hist.labelnames, k))[label]: v["sum"]
+                for k, v in hist._values.items()}
+
+
+def stream_times(handles):
+    """One thread per handle, each recording the host clock at every token
+    it drains; returns (threads, per-handle lists of times)."""
+    import threading
+    times = [[] for _ in handles]
+
+    def drain_one(h, ts):
+        for _ in h:
+            ts.append(time.perf_counter())
+
+    threads = [threading.Thread(target=drain_one, args=(h, ts), daemon=True)
+               for h, ts in zip(handles, times)]
+    for t in threads:
+        t.start()
+    return threads, times
+
+
+def drive_rollout(torch, ops_attn, ops_dec, params, merged, cfg, prompts,
+                  merged_outs, card):
+    """The online-learning loop's serving half at Llama-3-8B width: a plain
+    bf16 engine on the base params, running its loop thread, takes the
+    LoRA-trained tree (merged) from a trainer's publish_rollout into an
+    in-memory store, swapped in place between decode batches while 8
+    requests decode, then rolled back. The swap writes into ``params``'
+    own tensors; the rollback restores them, and a gate checks that it
+    did. Returns the phase's record."""
+    import threading
+
+    from kubetorch_tpu_torch import telemetry
+    from kubetorch_tpu_torch.models.convert import params_to_numpy
+    from kubetorch_tpu_torch.serve import GenerationEngine, WeightRollout
+    from kubetorch_tpu_torch.serve.rollout import publish_manifest, weights_key
+    from kubetorch_tpu_torch.train import publish_rollout
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    base_hash = leaf_hashes(torch, params)
+    seconds = telemetry.histogram("kt_rollout_seconds", labels=("phase",))
+    eng = GenerationEngine(params, cfg, **FEATURE_GRID, device="cuda")
+    payloads = []
+    eng.feedback_sink = payloads.append
+    launches = Launches(ops_attn, ops_dec)
+    launches.zero()
+    eng.start()
+    prefills = 0
+
+    def serve(label):
+        nonlocal prefills
+        hs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+        prefills += len(prompts)
+        outs = [h.result(timeout=600) for h in hs]
+        if any(len(o) != MAX_NEW for o in outs):
+            fail(f"rollout {label}: tokens {[len(o) for o in outs]}")
+        return outs
+
+    try:
+        base_outs = serve("base")
+        # trainer side: the port's host hand-off, then publish
+        t = time.perf_counter()
+        merged_host = params_to_numpy(merged)
+        handoff_s = time.perf_counter() - t
+        mem = MemStore()
+        t = time.perf_counter()
+        pub = publish_rollout("llm", merged_host, step=TRAIN_STEPS,
+                              store=mem)
+        publish_s = time.perf_counter() - t
+        state_bytes = sum(a.nbytes for a, _ in mem.kv.values())
+        print(f"rollout: trainer side: {len(mem.kv)} leaves, {state_bytes} "
+              f"bytes; hand-off to the host {handoff_s:.3f}s, publish "
+              f"(fingerprint, put, manifest) {publish_s:.3f}s card={card}",
+              flush=True)
+
+        wr = WeightRollout(eng, "llm", store=mem, replica_id="replica-0")
+        t = time.perf_counter()
+        wr._ensure_ledger()            # the first apply's ledger, alone
+        ledger_s = time.perf_counter() - t
+        base_fp = wr.fingerprint
+        print(f"rollout: replica ledger (host pull + blake2b of every leaf, "
+              f"once per replica): {ledger_s:.3f}s card={card}", flush=True)
+
+        # the swap, from a second thread, while 8 requests decode
+        rng = np.random.default_rng(LORA_TRAIN_SEED + 1)
+        flight = [eng.submit(rng.integers(0, cfg.vocab_size, 40).tolist(),
+                             max_new_tokens=ROLLOUT_FLIGHT_NEW)
+                  for _ in range(FEATURE_GRID["slots"])]
+        prefills += len(flight)
+        threads, times = stream_times(flight)
+        while eng.stats().active < len(flight):
+            time.sleep(0.01)
+        time.sleep(0.5)
+        finished0 = eng.stats().finished_total
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sums0 = hist_sums(seconds, "phase")
+        box = {}
+
+        def poll():
+            t0 = time.perf_counter()
+            try:
+                box["res"] = wr.poll_once()
+            except BaseException as e:   # noqa: BLE001 — reported below
+                box["error"] = e
+            box["window"] = (t0, time.perf_counter())
+
+        poller = threading.Thread(target=poll, name="rollout-poll")
+        poller.start()
+        poller.join()
+        if "error" in box:
+            fail(f"rollout: poll_once raised {box['error']!r}")
+        rise = torch.cuda.max_memory_allocated() - mem_before
+        in_flight = eng.stats().finished_total == finished0
+        for t in threads:
+            t.join(timeout=600)
+        res = box["res"]
+        sums1 = hist_sums(seconds, "phase")
+        phases = {p: sums1.get(p, 0.0) - sums0.get(p, 0.0)
+                  for p in ("fetch", "stage", "swap", "verify")}
+        changed = ("wq", "wk", "wv", "wo")
+        want_bytes = sum(params["layers"][k].numel()
+                         * params["layers"][k].element_size() for k in changed)
+        one_leaf = max(params["layers"][k].numel()
+                       * params["layers"][k].element_size() for k in changed)
+        lo, hi = box["window"]
+        gaps = []
+        for ts in times:
+            gaps += [b - a for a, b in zip(ts, ts[1:]) if b > lo and a < hi]
+        all_gaps = sorted(b - a for ts in times for a, b in zip(ts, ts[1:]))
+        print(f"rollout: swap while {len(flight)} requests decode: "
+              f"{res['leaves_changed']} leaves changed, bytes fetched "
+              f"{res['bytes']} (the 4 leaves: {want_bytes}), swap on thread "
+              f"{wr.last_swap_thread!r}, replica fingerprint == trainer's: "
+              f"{wr.fingerprint == pub['fingerprint']}, every request still in "
+              f"flight at the swap's end: {in_flight}", flush=True)
+        print(f"rollout: kt_rollout_seconds fetch={phases['fetch']} "
+              f"stage={phases['stage']} swap={phases['swap']} "
+              f"verify={phases['verify']}; poll_once wall {hi - lo:.4f}s; "
+              f"longest gap between two tokens of a stream across the swap "
+              f"{max(gaps) if gaps else 0.0:.4f}s (median gap of the streams "
+              f"{all_gaps[len(all_gaps) // 2]:.4f}s); device memory rise "
+              f"across the swap {rise} bytes (one leaf: {one_leaf}) "
+              f"card={card}", flush=True)
+        if res["leaves_changed"] != len(changed):
+            fail(f"rollout: {res['leaves_changed']} leaves changed, expected 4")
+        if res["bytes"] != {"store": want_bytes}:
+            fail(f"rollout: fetched {res['bytes']}, expected {want_bytes}")
+        if wr.last_swap_thread != "kt-gen-engine":
+            fail(f"rollout: the swap ran on {wr.last_swap_thread!r}")
+        if wr.fingerprint != pub["fingerprint"]:
+            fail("rollout: the replica's fingerprint is not the trainer's")
+        if not in_flight:
+            fail("rollout: a request finished before the swap ended")
+        lens = [len(ts) for ts in times]
+        if lens != [ROLLOUT_FLIGHT_NEW] * len(flight):
+            fail(f"rollout: in-flight streams gave {lens} tokens")
+        if rise > one_leaf:
+            fail(f"rollout: device memory rose {rise} bytes across the swap")
+
+        after = serve("after the swap")
+        if after != merged_outs:
+            from kubetorch_tpu_torch.serve import engine as engine_mod
+            for i, p in enumerate(prompts):
+                got, _, _ = one_shot(torch, engine_mod, eng.params, cfg, eng, p)
+                want, _, _ = one_shot(torch, engine_mod, merged, cfg, eng, p)
+                print(f"rollout: request {i}: first-token logits rel_l2 "
+                      f"{float((got - want).norm() / want.norm())}", flush=True)
+            fail("rollout: tokens after the swap differ from the merged "
+                 "engine's")
+
+        t = time.perf_counter()
+        publish_manifest("llm", key=weights_key("llm"), step=0,
+                         fingerprint=base_fp, phase="rollback",
+                         reason="smoke", store=mem)
+        back = wr.poll_once()
+        rollback_s = time.perf_counter() - t
+        restored = leaf_hashes(torch, params) == base_hash
+        again = serve("after the rollback")
+        print(f"rollout: rollback {rollback_s:.3f}s: rolled back "
+              f"{back['rolled_back']}, base leaf hashes restored {restored}, "
+              f"fingerprint == base {wr.fingerprint == base_fp}, tokens == "
+              f"the base engine's {again == base_outs}; after the swap == "
+              f"the merged engine's {after == merged_outs}", flush=True)
+        if not (back["rolled_back"] and restored and wr.fingerprint == base_fp
+                and again == base_outs):
+            fail("rollout: the rollback did not restore the base weights")
+    finally:
+        eng.stop()
+    got = launches.read()
+    steps = eng.stats().decode_steps
+    check_launches("rollout", got, dict(
+        flash_fwd=L * prefills, decode_attention=L * steps,
+        decode_attention_quant=0))
+    ttfts = [p["ttft_s"] for p in payloads]
+    if len(payloads) != prefills or any(t is None for t in ttfts):
+        fail(f"rollout: {len(payloads)} feedback payloads for {prefills} "
+             f"requests")
+    print(f"rollout: feedback_sink payloads {len(payloads)} (one per retired "
+          f"request, each with its TTFT; mean {sum(ttfts) / len(ttfts):.4f}s)",
+          flush=True)
+    print(f"rollout: __kt_metrics__ {json.dumps(eng.__kt_metrics__())} "
+          f"aot_stats {eng.aot_stats()}", flush=True)
+    del eng, wr, mem, merged_host
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"rollout: phase wall {wall:.1f}s card={card}", flush=True)
+    return dict(launches=got, ledger_s=ledger_s, publish_s=publish_s,
+                handoff_s=handoff_s, seconds=phases, rollback_s=rollback_s,
+                max_gap_s=max(gaps) if gaps else 0.0, memory_rise=rise,
+                phase_wall_s=wall)
 
 
 def drive_lora_q4(torch, ops_attn, ops_dec, ops_q4, params, cfg, card):
@@ -2872,9 +3198,117 @@ def drive_training(torch, ops_attn, card):
         state, _ = step(state, batch)
 
     profile_steps(torch, f"2 train steps, batch {TRAIN_B}x{TRAIN_S}", one_step, 2)
+    state, checkpoint = drive_checkpoint(torch, ops_attn, step, state, batch,
+                                         card)
     check_train_paths(torch, cfg, state.params, tokens)
     return counts, dict(tokens_per_s=tps, mfu=mfu, peak_memory_gb=peak_gb,
-                        ms_per_step=dt / TRAIN_STEPS * 1e3)
+                        ms_per_step=dt / TRAIN_STEPS * 1e3,
+                        checkpoint=checkpoint)
+
+
+def drive_checkpoint(torch, ops_attn, step, state, batch, card):
+    """The 1B training run saved and resumed: after step k, a blocking
+    snapshot and its fingerprint; Checkpointer.maybe_save (async) and at
+    once step k + 1, whose in-place update races the copies; flush. The
+    committed checkpoint must fingerprint as the blocking snapshot, and
+    restored onto the card its next step must give step k + 1's loss
+    exactly. Then a save torn at its commit marker, and the same state
+    saved again (every leaf already there). Returns (state, record)."""
+    from kubetorch_tpu_torch import telemetry
+    from kubetorch_tpu_torch.train import (Checkpointer, commit_info,
+                                           train_state_from_tree,
+                                           train_state_tree, tree_fingerprint)
+    from kubetorch_tpu_torch.train.checkpoint import _host_tree
+
+    t_phase = time.perf_counter()
+    fa = ops_attn.flash_attention
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    stall = telemetry.train_metrics()["step_seconds"]
+    ckpt_s = telemetry.histogram("kt_checkpoint_seconds", labels=("op",))
+    mem = MemStore()
+    ckpt = Checkpointer("train/llama-1b", store=mem)
+    torch.cuda.synchronize()
+    k = int(state.step)
+    t = time.perf_counter()
+    snap = _host_tree(train_state_tree(state))
+    snapshot_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want_fp = tree_fingerprint(snap)
+    fingerprint_s = time.perf_counter() - t
+    state_bytes = sum(a.nbytes for a in _np_leaves(snap))
+    del snap
+    stall0 = hist_sums(stall, "phase").get("snapshot_stall", 0.0)
+    fut = ckpt.maybe_save(train_state_tree(state), k)
+    state, m = step(state, batch)         # step k + 1, at once, in place
+    live_loss = float(m["loss"])
+    t = time.perf_counter()
+    ckpt.flush()
+    flush_s = time.perf_counter() - t
+    stall_s = hist_sums(stall, "phase")["snapshot_stall"] - stall0
+    saved = fut.result()
+    t = time.perf_counter()
+    restored, at = ckpt.restore()
+    restore_s = time.perf_counter() - t
+    got_fp = tree_fingerprint(restored)
+    resumed = train_state_from_tree(restored, state, device="cuda")
+    resumed, m2 = step(resumed, batch)
+    resumed_loss = float(m2["loss"])
+    del resumed, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"checkpoint: Llama-3.2-1B train state {state_bytes} bytes at step "
+          f"{k}: blocking snapshot {snapshot_s:.3f}s, its fingerprint "
+          f"{fingerprint_s:.3f}s; maybe_save held the step "
+          f"{stall_s:.4f}s (kt_train_step_seconds{{phase=\"snapshot_stall\"}})"
+          f", the commit (put, marker) {saved['seconds']}s on the IO "
+          f"thread, flush waited {flush_s:.3f}s after step {k + 1}; restore "
+          f"{restore_s:.4f}s card={card}", flush=True)
+    print(f"checkpoint: committed step {at}, fingerprint == the blocking "
+          f"snapshot's {got_fp == want_fp}; restored and stepped: loss "
+          f"{resumed_loss} vs the live step {k + 1}'s {live_loss}", flush=True)
+    if at != k or got_fp != want_fp:
+        fail("checkpoint: the committed bytes are not step k's (the in-place "
+             "step overtook the snapshot?)")
+    if resumed_loss != live_loss:
+        fail(f"checkpoint: restored step loss {resumed_loss} != {live_loss}")
+
+    # a save torn at its commit marker, then the same state saved again
+    mem.fail_json = True
+    try:
+        ckpt.save(train_state_tree(state), k + 1)
+        fail("checkpoint: the torn save did not raise")
+    except OSError:
+        pass
+    torn_info = commit_info("train/llama-1b", store=mem)
+    again = ckpt.save(train_state_tree(state), k + 1)
+    print(f"checkpoint: a save torn at its marker leaves commit {torn_info}; "
+          f"the same state saved again: {again['skipped']} of "
+          f"{again['leaves']} leaves skipped, {again['bytes']} bytes moved, "
+          f"{again['seconds']}s; kt_checkpoint_seconds "
+          f"{hist_sums(ckpt_s, 'op')}", flush=True)
+    if torn_info != {"step": k, "slot": 0}:
+        fail(f"checkpoint: a torn save moved the commit to {torn_info}")
+    if again["skipped"] != again["leaves"] or again["bytes"] != 0:
+        fail(f"checkpoint: the second save moved bytes: {again}")
+    counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    L = int(state.params["layers"]["wq"].shape[0])
+    check_launches("checkpoint (A1, A2, A3) over 2 steps", counts,
+                   (4 * L, 2 * L, 2 * L))
+    del mem, ckpt
+    gc.collect()
+    wall = time.perf_counter() - t_phase
+    print(f"checkpoint: phase wall {wall:.1f}s card={card}", flush=True)
+    return state, dict(launches=counts, state_bytes=state_bytes,
+                       snapshot_s=snapshot_s, stall_s=stall_s,
+                       commit_s=saved["seconds"], flush_s=flush_s,
+                       restore_s=restore_s, phase_wall_s=wall)
+
+
+def _np_leaves(tree):
+    from kubetorch_tpu_torch.data_store import commands as ds
+    leaves = {}
+    ds._flatten(tree, "", leaves)
+    return list(leaves.values())
 
 
 def check_train_paths(torch, cfg, params, tokens):
@@ -2978,6 +3412,9 @@ def main() -> None:
     def train_launches(i):
         return {k: dict(launches=r["launches"][i]) for k, r in trains.items()}
 
+    rollout_n = lora_train["rollout"]["launches"]
+    checkpoint_n = train["checkpoint"]["launches"]
+
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_fwd.cu",
@@ -2986,6 +3423,8 @@ def main() -> None:
              "again under remat)", **train_k["fwd"], **train_launches(0),
              lora_serve=dict(launches={w: n["flash_fwd"] for w, n in
                                        lora_train["serve"].items()}),
+             rollout=dict(launches=rollout_n["flash_fwd"]),
+             checkpoint=dict(launches=checkpoint_n[0]),
              serving=dict(launches=flash_n, **flash),
              serving_quant=dict(launches=quant_n["flash_fwd"]),
              engine_features=dict(launches=feat_n["flash_fwd"]),
@@ -3004,6 +3443,7 @@ def main() -> None:
              launches=decode_n, path="serving", **dec,
              lora_serve=dict(launches={w: n["decode_attention"] for w, n in
                                        lora_train["serve"].items()}),
+             rollout=dict(launches=rollout_n["decode_attention"]),
              engine_features=dict(launches=feat_n["decode_attention"]),
              lora=dict(launches=lora_n["decode_attention"]),
              spec=dict(launches=spec_n["spec"]["decode_attention"]),
@@ -3014,12 +3454,12 @@ def main() -> None:
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:140",
              launches=train_n[1], path="training", **train_k["dq"],
-             **train_launches(1)),
+             **train_launches(1), checkpoint=dict(launches=checkpoint_n[1])),
         dict(name="flash_bwd_dkv", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:180",
              launches=train_n[2], path="training", **train_k["dkv"],
-             **train_launches(2)),
+             **train_launches(2), checkpoint=dict(launches=checkpoint_n[2])),
         dict(name="decode_attention_quant", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",

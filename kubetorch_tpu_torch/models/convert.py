@@ -1,5 +1,5 @@
 """Carry a JAX param tree, or a whole JAX train state, across as the
-port's tensors.
+port's tensors, and a tensor tree back to the host as numpy.
 
 The caller turns each leaf into numpy (``np.asarray`` on a JAX array) and
 hands the tree over; the result has the same nesting and the same stacked
@@ -11,6 +11,14 @@ reinterpreted through a ``uint16`` view, so the conversion is exact.
 chain's state, step) into the port's ``train.TrainState``: optax's state
 classes map by name onto their copies in ``train/optim.py``, so a run
 resumes from the same moments and counts, not only the same weights.
+
+``params_to_numpy`` is the way back (the host hand-off of a checkpoint or
+a weight rollout): each tensor becomes a C-contiguous numpy array of its
+own, copied off the device. numpy has no bf16, so a bf16 tensor crosses
+as its bits, an ``int16`` view read back as ``uint16``: the bytes, and
+with them every content hash, are those of the JAX package's ml_dtypes
+bfloat16 leaf, and ``params_from_numpy`` brings it back as the same bf16
+tensor.
 """
 
 from __future__ import annotations
@@ -24,12 +32,34 @@ from .common import resolve_device
 
 
 def _leaf(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a, order="C")   # keeps a 0-d array 0-d
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a.copy())
     return t.to(device)
+
+
+def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor → a numpy array of its own on the host (never a view of
+    the tensor, so later in-place updates do not reach it); bf16 as its
+    bits in ``uint16``."""
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).to("cpu", copy=True).numpy().view(np.uint16)
+    return t.to("cpu", copy=True).numpy()
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Nested dict/list of tensors → the same structure of numpy arrays
+    (:func:`leaf_to_numpy`); numpy leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return leaf_to_numpy(tree)
+    return np.asarray(tree, order="C")
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:

@@ -1,7 +1,8 @@
 """Serving: the continuous-batching generation engine, weight quantization
 for it, its int8 KV cache, speculative decoding (one request, and the
-engine with a draft model), and the session binder that keeps a session's
-prompt resident as a cached prefix."""
+engine with a draft model), the session binder that keeps a session's
+prompt resident as a cached prefix, and the live weight rollout that swaps
+published weights into a running engine."""
 
 from ..models.quant import (dequantize_params, llama_init_quantized,
                             quantize_params, quantize_params_int4,
@@ -9,11 +10,13 @@ from ..models.quant import (dequantize_params, llama_init_quantized,
 from .engine import EngineStats, GenerationEngine, RequestHandle
 from .kv_quant import (QuantKVCache, dequantize_rows, init_quant_cache,
                        quantize_rows)
+from .rollout import CanaryRollout, HostEngine, WeightRollout
 from .sessions import EngineSessionBinder, SessionStats, session_key
 from .spec_engine import SpeculativeEngine
 from .speculative import SpecStats, speculative_generate
 
 __all__ = ["EngineStats", "GenerationEngine", "RequestHandle",
+           "CanaryRollout", "HostEngine", "WeightRollout",
            "EngineSessionBinder", "SessionStats", "session_key",
            "SpeculativeEngine", "SpecStats", "speculative_generate",
            "quantize_params", "quantize_params_int4", "llama_init_quantized",

@@ -74,6 +74,13 @@
   decoding slots fall back to the base model. Prefixes are keyed by the
   adapter they were computed through.
 
+- **Service hooks.** ``at_batch_boundary(fn)`` runs ``fn`` on the
+  stepping thread between decode batches (the one safe point for a live
+  weight swap, ``serve/rollout.py``); ``feedback_sink`` receives one
+  summary per retired request; ``__kt_metrics__`` is the pod scrape's
+  gauges and ``aot_stats`` the (empty) compile-cache counts, as in the
+  JAX engine.
+
 Not ported yet, and raising ``NotImplementedError`` rather than being
 ignored: ``aot_cache`` and a device mesh (so neither the sharded int8
 decode).
@@ -702,6 +709,14 @@ class GenerationEngine:
         # exactly one loop thread may ever exist: two would interleave
         # decode steps on the same cache
         self._lifecycle = threading.Lock()
+        # callables queued for the next batch boundary (the live weight
+        # swap: serve/rollout.py; see at_batch_boundary)
+        self._boundary_hooks: "deque[tuple]" = deque()
+        # continuous-learning tap: when set, every retired request's
+        # summary passes through it once, on the stepping thread. The sink
+        # must swallow its own errors; the retire path guards all the same,
+        # since a raising sink would wedge the loop for every live slot
+        self.feedback_sink = None
         self._admitted = self._finished = 0
         self._tokens = self._steps = 0
         self._ttfts = deque(maxlen=256)
@@ -999,6 +1014,21 @@ class GenerationEngine:
         req = self._slot_req[slot]
         if req is None:
             return
+        if self.feedback_sink is not None:
+            # built before any state clears: after this method the slot's
+            # state is gone
+            try:
+                self.feedback_sink({
+                    "request_id": req.rid,
+                    "prompt": list(req.full_prompt or req.prompt),
+                    "generated": int(req.generated),
+                    "cancelled": bool(req.cancelled),
+                    "ttft_s": (req.first_token_at - req.submitted_at
+                               if req.first_token_at is not None else None),
+                    "latency_s": time.monotonic() - req.submitted_at,
+                })
+            except Exception:  # noqa: BLE001 — never wedge the step thread
+                pass
         req.out.put(None)
         self._slot_req[slot] = None
         self._gens[slot] = None
@@ -1280,6 +1310,43 @@ class GenerationEngine:
         if done:
             self._retire_slot(slot)
 
+    # -- batch-boundary scheduling ------------------------------------------
+
+    def at_batch_boundary(self, fn, timeout: Optional[float] = None):
+        """Run ``fn()`` between decode batches, on the stepping thread, and
+        return its result. The safe point for anything that changes
+        engine-wide device state, above all the live weight swap
+        (``serve/rollout.py``): no decode step is in flight while the hook
+        runs. Blocks the caller, never the loop, until the hook has run;
+        with no loop thread, or called from the loop thread, runs inline.
+        The hook's exception reaches the caller, never the loop."""
+        with self._lifecycle:
+            thread = self._thread
+        running = thread is not None and thread.is_alive()
+        if not running or threading.current_thread() is thread:
+            with torch.no_grad():
+                return fn()
+        box: Dict[str, Any] = {"done": threading.Event()}
+        self._boundary_hooks.append((fn, box))
+        self._work.set()
+        if not box["done"].wait(timeout):
+            raise TimeoutError(
+                "engine did not reach a batch boundary in time")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def _run_boundary_hooks(self) -> None:
+        """Drain queued boundary hooks (stepping thread, between batches)."""
+        while self._boundary_hooks:
+            fn, box = self._boundary_hooks.popleft()
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001 — hand to the waiter
+                box["error"] = e
+            finally:
+                box["done"].set()
+
     # -- engine loop --------------------------------------------------------
 
     def step(self) -> int:
@@ -1291,6 +1358,9 @@ class GenerationEngine:
             return self._step_once()
 
     def _step_once(self) -> int:
+        # boundary hooks first: the previous step's decode has been read
+        # back, so a weight swap never overlaps a step on the old params
+        self._run_boundary_hooks()
         self._reap_cancelled()
         self._admit()
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
@@ -1340,7 +1410,7 @@ class GenerationEngine:
     def _run(self) -> None:
         while not self._stop.is_set():
             n = self.step()
-            if n == 0 and not self._pending:
+            if n == 0 and not self._pending and not self._boundary_hooks:
                 self._work.clear()
                 self._work.wait(timeout=0.5)
 
@@ -1365,8 +1435,17 @@ class GenerationEngine:
             if self._thread is thread and (thread is None
                                            or not thread.is_alive()):
                 self._thread = None
+        # hooks queued in the stop race would strand their waiters: with
+        # the loop gone, this thread is the stepping thread
+        with torch.no_grad():
+            self._run_boundary_hooks()
 
     # -- introspection ------------------------------------------------------
+
+    def aot_stats(self) -> Dict[str, int]:
+        """Compile-cache counts, as the JAX engine reports them: this
+        engine takes no ``aot_cache``, so only ``executables``, 0."""
+        return {"executables": 0}
 
     def stats(self) -> EngineStats:
         dt = max(time.monotonic() - self._t0, 1e-9)
@@ -1383,6 +1462,29 @@ class GenerationEngine:
             tokens_per_sec=self._tokens / dt,
             ttft_avg=(sum(self._ttfts) / len(self._ttfts)
                       if self._ttfts else 0.0))
+
+    def __kt_metrics__(self) -> Dict[str, float]:
+        """Pod-scrape hook: the engine's live gauges, under the JAX
+        engine's keys (host counters only; cheap enough for every
+        scrape)."""
+        s = self.stats()
+        out = {"engine_slots": float(s.slots),
+               "engine_active": float(s.active),
+               "engine_slots_free": float(s.slots - s.active),
+               "engine_queued": float(s.queued),
+               "engine_admitted_total": float(s.admitted_total),
+               "engine_finished_total": float(s.finished_total),
+               "engine_tokens_generated": float(s.tokens_generated),
+               "engine_decode_steps": float(s.decode_steps),
+               "engine_tokens_per_sec": float(s.tokens_per_sec),
+               "engine_ttft_avg_seconds": float(s.ttft_avg),
+               "engine_prefix_hits": float(self._prefix_hits)}
+        spec = getattr(self, "spec_stats", None)
+        if spec is not None:
+            out["engine_spec_rounds"] = float(spec.rounds)
+            out["engine_spec_acceptance_rate"] = float(spec.acceptance_rate)
+            out["engine_spec_draft_len"] = float(getattr(self, "k", 0))
+        return out
 
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 64,
                  timeout: Optional[float] = 300.0, *,

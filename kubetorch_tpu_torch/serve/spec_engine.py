@@ -453,10 +453,13 @@ class SpeculativeEngine(GenerationEngine):
         self._spec_valid[slot] = 0
 
     def step(self) -> int:
-        """Admit pending requests (or advance the chunked admission), then
-        run one speculation round over every active slot. Returns the
-        remaining work, as the base engine's ``step``."""
+        """Run the batch-boundary hooks, admit pending requests (or advance
+        the chunked admission), then run one speculation round over every
+        active slot. Returns the remaining work, as the base engine's
+        ``step``. (The JAX engine's ``step`` runs no boundary hooks, so a
+        hook queued beside its loop thread waits for ``stop``.)"""
         with torch.no_grad():
+            self._run_boundary_hooks()
             self._reap_cancelled()
             self._admit()
             active = [i for i, r in enumerate(self._slot_req)

@@ -3,6 +3,9 @@
 What the port's engines and train step export, with the JAX package's
 metric names and exposition text:
 
+- a labelled counter (``inc``, ``value``, one line per label set) and
+  ``counter()``; the rollout's ``kt_rollout_bytes_total{source}`` and
+  ``kt_rollout_rollbacks_total{reason}``;
 - a label-less gauge (``set``, ``value``, its own Prometheus lines) and
   ``gauge()``'s get-or-create registry; ``spec_metrics()``, the
   speculative engine's (``kt_spec_accept_rate``, ``kt_spec_draft_len``);
@@ -12,7 +15,7 @@ metric names and exposition text:
   (``kt_train_step_seconds{phase}``, observed by ``make_train_step``, and
   the ``kt_train_mfu`` gauge).
 
-The rest of the JAX module (tracing, counters, labelled gauges, the
+The rest of the JAX module (tracing and its spans, labelled gauges, the
 registry's exposition text) waits for the port's benchmark work.
 """
 
@@ -51,6 +54,50 @@ def _header(name: str, help: str, kind: str) -> List[str]:
     out = [f"# HELP {name} {help}"] if help else []
     out.append(f"# TYPE {name} {kind}")
     return out
+
+
+def _label_key(name: str, labelnames: Tuple[str, ...],
+               labels: Dict[str, Any]) -> Tuple[str, ...]:
+    """A labelled metric's key for ``labels``, which must be exactly the
+    declared names."""
+    if set(labels) != set(labelnames):
+        raise ValueError(f"{name}: got labels {sorted(labels)}, "
+                         f"declared {sorted(labelnames)}")
+    return tuple(str(labels[k]) for k in labelnames)
+
+
+class Counter:
+    kind = "counter"
+
+    def __init__(self, name: str, help: str, labelnames: Tuple[str, ...]):
+        self.name = name
+        self.help = help
+        self.labelnames = labelnames
+        self._lock = threading.Lock()
+        self._values: Dict[Tuple[str, ...], float] = {}
+
+    def _key(self, labels: Dict[str, Any]) -> Tuple[str, ...]:
+        return _label_key(self.name, self.labelnames, labels)
+
+    def inc(self, amount: float = 1.0, **labels: Any) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels: Any) -> float:
+        with self._lock:
+            return self._values.get(self._key(labels), 0.0)
+
+    def render(self) -> List[str]:
+        out = _header(self.name, self.help, self.kind)
+        with self._lock:
+            items = sorted(self._values.items())
+        if not items and not self.labelnames:
+            items = [((), 0.0)]
+        for key, v in items:
+            out.append(f"{self.name}{_label_str(self.labelnames, key)} "
+                       f"{_format_value(v)}")
+        return out
 
 
 class Gauge:
@@ -94,11 +141,7 @@ class Histogram:
         self._values: Dict[Tuple[str, ...], Dict[str, Any]] = {}
 
     def _key(self, labels: Dict[str, Any]) -> Tuple[str, ...]:
-        if set(labels) != set(self.labelnames):
-            raise ValueError(
-                f"{self.name}: got labels {sorted(labels)}, "
-                f"declared {sorted(self.labelnames)}")
-        return tuple(str(labels[k]) for k in self.labelnames)
+        return _label_key(self.name, self.labelnames, labels)
 
     def observe(self, value: float, **labels: Any) -> None:
         key = self._key(labels)
@@ -139,7 +182,7 @@ class Histogram:
         return out
 
 
-_REGISTRY: Dict[str, Union[Gauge, Histogram]] = {}
+_REGISTRY: Dict[str, Union[Counter, Gauge, Histogram]] = {}
 _REGISTRY_LOCK = threading.Lock()
 
 
@@ -152,6 +195,10 @@ def _get_or_create(cls, name: str, *args, **kwargs):
         elif not isinstance(m, cls):
             raise ValueError(f"metric {name!r} already registered as {m.kind}")
         return m
+
+
+def counter(name: str, help: str = "", labels=()) -> Counter:
+    return _get_or_create(Counter, name, help, tuple(labels))
 
 
 def gauge(name: str, help: str = "") -> Gauge:

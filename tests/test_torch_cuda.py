@@ -27,7 +27,10 @@ mma.sync at M <= 16, wgmma + TMA above) are each held to the plain version
 and must repeat their output bit for bit. A1, A2 and A3 in bf16 at head
 dim 64 and 128 run their tensor-core bodies (wgmma + TMA, P and dS split
 into two bf16 halves) and take the bf16 tolerances; fp32 runs the FMA
-bodies and takes fp32's.
+bodies and takes fp32's. A checkpoint's async snapshot under a
+``donate=True`` step must fingerprint as the state it saved and repeat the
+live step's loss exactly; a live weight swap must allocate nothing on the
+card.
 """
 
 import dataclasses
@@ -1129,3 +1132,82 @@ def test_moe_loss_kernel_path_matches_plain(cuda):
     assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
     for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the live weight rollout (MemStore: chip_smoke's in-memory
+# store protocol)
+# ---------------------------------------------------------------------------
+
+
+def test_async_snapshot_holds_its_step_under_donate(cuda):
+    """maybe_save's copies into pinned memory ride the step's stream, so a
+    donate=True step issued at once (in place) cannot reach the saved
+    bytes: the commit fingerprints as the state before that step, and
+    restored it repeats the live step's loss exactly."""
+    from chip_smoke import MemStore
+    from kubetorch_tpu_torch.train import (Checkpointer, train_state_from_tree,
+                                           train_state_tree, tree_fingerprint)
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16)
+    opt = default_optimizer(warmup_steps=2)
+    state = init_train_state(llama_init(cfg, seed=7, device=cuda), opt)
+    step = make_train_step(lambda p, t, y: llama_loss_chunked(p, t, y, cfg, 32),
+                           opt)
+    batch = _tiny_batch(cuda)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    want = tree_fingerprint(train_state_tree(state))
+    ckpt = Checkpointer("t/snap", store=MemStore())
+    ckpt.maybe_save(train_state_tree(state), 2)
+    state, m = step(state, batch)          # in place, right behind the copies
+    live = float(m["loss"])
+    assert ckpt.flush() == 2
+    tree, at = ckpt.restore()
+    assert at == 2 and tree_fingerprint(tree) == want
+    assert tree["params"]["embed"].dtype.itemsize == 2
+    resumed = train_state_from_tree(tree, state, device=cuda)
+    _, m2 = step(resumed, batch)
+    assert float(m2["loss"]) == live
+
+
+def test_rollout_swaps_in_place_without_device_memory(cuda):
+    """The swap writes the new bytes into the engine's own tensors from
+    host memory: no allocation on the card, the same tensor objects, and
+    the engine's tokens afterwards equal a fresh engine's on the new
+    tree."""
+    from chip_smoke import MemStore
+    from kubetorch_tpu_torch.models.convert import params_to_numpy
+    from kubetorch_tpu_torch.serve import WeightRollout
+    from kubetorch_tpu_torch.train import publish_rollout
+    cfg = LlamaConfig.tiny(dtype=torch.bfloat16)
+    params = llama_init(cfg, seed=8, device=cuda)
+    new = tree_map(lambda t: t.clone(), params)
+    new["layers"]["wq"].mul_(1.5)
+    new["layers"]["wo"].mul_(0.5)
+
+    def engine(p):
+        return GenerationEngine(p, cfg, slots=2, max_len=160,
+                                prefill_buckets=(8, 128), device=cuda)
+
+    def tokens(eng):
+        hs = [eng.submit(p, max_new_tokens=6) for p in ([5, 17, 42], [9, 8])]
+        while eng.step():
+            pass
+        return [h.result(timeout=0) for h in hs]
+
+    eng = engine(params)
+    held = params["layers"]["wq"]
+    store = MemStore()
+    publish_rollout("llm", params_to_numpy(new), 1, store=store)
+    wr = WeightRollout(eng, "llm", store=store)
+    wr._ensure_ledger()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = wr.poll_once()
+    torch.cuda.synchronize()
+    assert res["leaves_changed"] == 2
+    assert torch.cuda.max_memory_allocated() == before
+    assert eng.params["layers"]["wq"] is held
+    assert torch.equal(held, new["layers"]["wq"])
+    assert tokens(eng) == tokens(engine(new))
