@@ -112,6 +112,31 @@
    exactness at Llama-3-8B's width with 2 layers: SpeculativeEngine's
    greedy tokens, with an independent draft and with self-draft, equal to
    the plain engine's on 4 requests.
+   Then a published checkpoint through the OpenAI surface ("hf_openai"):
+   the seed tree (norms drawn from a seed and rounded to bf16) written by
+   the script's own safetensors writer and inverse RoPE permutation (an
+   index map) in the layout of Meta's meta-llama/Meta-Llama-3-8B
+   repository (its config.json, four bf16 shards of at most 5 GB, the
+   index), after a check of the free disk; load_hf onto the card: every
+   leaf bitwise the seed tree's (load seconds, GB/s, host RSS rise, device
+   bytes). A second directory at the same width, 2 layers, fp32, with
+   Llama-3.1-8B's rope_scaling: llama_forward on its load_hf within 1e-4
+   relative L2 of the script's HF-convention forward (rotate_half, the
+   llama3 frequency scaling) over 4 prompts of up to 512 tokens; save_hf
+   of that tree and load_hf of the export bitwise equal. Then
+   GenerationEngine (the engine phases' grid, auto_prefix) on the loaded
+   tree with an OpenAIApp over it, driven through its plain methods: the
+   12 prompts one at a time (4 also through engine.generate: equal
+   tokens), a stream equal to the blocking call, logprobs equal to the
+   handle's, a token-id stop's finish_reason, a chat completion through a
+   byte-level stand-in tokenizer, seeded n = 2 reproducible and distinct,
+   the 12 prompts from 12 threads (first tokens equal, first logprobs
+   within 2e-2), a registered 1000-token prefix hit by auto_prefix with
+   the one-shot prompt's first token and JAX's unregister payloads,
+   embeddings of 128, 1000 and 2048 tokens within 5e-2 of pooled
+   plain-attention hidden states; exact A1/B1 counts in every run; prints
+   the first SSE chunk's latency beside a direct submit's first token and
+   8 streams' decode tokens/s through the surface beside the engine alone.
 5. Serves Llama-3-8B again, full width and depth, quantized: int4 weights
    (group 128, llama_init_quantized) and an int8 KV cache
    (quantize_kv=True), the same warm-up and 12 requests. Checks that every
@@ -357,11 +382,65 @@ B1_DRAFT_SHAPES = ("a", "d")
 # tokens each across the live swap (~12 s of steps, the swap ~1 s)
 ROLLOUT_FLIGHT_NEW = 256
 Q4_WINDOW_SHAPES = tuple((8 * (2 * SPEC_K + 1), k, n) for _, k, n in Q4_SHAPES[:4])
+# the "hf_openai" phase: a checkpoint in the layout of Meta's published
+# meta-llama/Meta-Llama-3-8B repository (its config.json, bf16 weights in
+# four safetensors shards of at most 5 GB and model.safetensors.index.json)
+# written from the engine phases' seed tree, its norms drawn from a seed;
+# a second one at the same width, 2 layers, fp32, with Llama-3.1-8B's
+# rope_scaling, for the forward against the script's own HF-convention
+# forward (fp32 on both sides, TF32 off: only the order of the sums
+# differs, ~1e-6 relative per op); then the OpenAI surface's traffic on
+# the engine phases' grid with auto_prefix on
+META_LLAMA3_8B = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000, "eos_token_id": 128001,
+    "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 8192,
+    "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "rope_theta": 500000.0,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "transformers_version": "4.40.0.dev0", "use_cache": True,
+    "vocab_size": 128256}
+LLAMA31_ROPE_SCALING = {"factor": 8.0, "low_freq_factor": 1.0,
+                        "high_freq_factor": 4.0,
+                        "original_max_position_embeddings": 8192,
+                        "rope_type": "llama3"}
+HF_SHARD_BYTES, HF_SHARDS = 5 * 10 ** 9, 4
+HF_NORM_SEED, HF_FWD_SEED, HF_FWD_LAYERS = 3, 5, 2
+HF_FWD_PROMPTS, HF_FWD_REL_L2 = (512, 300, 128, 37), 1e-4
+# the surface's traffic: the engine phases' 12 prompts one at a time
+# (4 of them also through engine.generate), then from 12 threads at once;
+# where batch composition may change bf16 bits, each concurrent request's
+# first token must be the sequential one and its logprob within
+# API_FIRST_LP_ABS; embeddings of 128, 1000 and 2048 tokens against the
+# pooled plain-attention hidden states within LOGITS_REL_L2 (the same
+# attention numerics gap as the first-token check); 8 streams of 40-token
+# prompts decode API_STREAM_NEW tokens through the surface and through the
+# engine alone
+API_PARITY = (0, 4, 8, 11)
+API_FIRST_LP_ABS = 2e-2
+API_PREFIX_SUFFIX = 100
+API_EMBED_LENS = (128, 1000, 2048)
+API_STREAM_NEW = 64
+API_TTFC_REPS = 3
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def installed_versions(names=("transformers", "safetensors", "aiohttp")):
+    """{package: version or None} without importing them."""
+    from importlib import metadata
+    out = {}
+    for name in names:
+        try:
+            out[name] = metadata.version(name)
+        except metadata.PackageNotFoundError:
+            out[name] = None
+    return out
 
 
 def card_line() -> str:
@@ -3305,10 +3384,7 @@ def drive_checkpoint(torch, ops_attn, step, state, batch, card):
 
 
 def _np_leaves(tree):
-    from kubetorch_tpu_torch.data_store import commands as ds
-    leaves = {}
-    ds._flatten(tree, "", leaves)
-    return list(leaves.values())
+    return list(named_leaves(tree).values())
 
 
 def check_train_paths(torch, cfg, params, tokens):
@@ -3351,6 +3427,722 @@ def check_train_paths(torch, cfg, params, tokens):
         fail(f"train: kernel-path loss differs from the plain path by {diff}")
 
 
+# the safetensors names of the dtypes the script's own writer takes, by
+# str(dtype): torch is imported only in main
+ST_NAMES = {"torch.float32": "F32", "torch.bfloat16": "BF16"}
+
+
+def half_split_rows(torch, n_heads, head_dim):
+    """Row r of HF's q/k projection (half-split RoPE: head h, half j,
+    pair i at r = h*hd + j*hd/2 + i) is column h*hd + 2i + j of the
+    port's (in, out) leaf, whose pairs are interleaved: an index map, not
+    the reshape the port's converter uses."""
+    idx = [h * head_dim + 2 * i + j for h in range(n_heads) for j in (0, 1)
+           for i in range(head_dim // 2)]
+    return torch.tensor(idx, dtype=torch.long, device="cuda")
+
+
+def write_hf_checkpoint(torch, path, conf, items, shard_bytes=HF_SHARD_BYTES):
+    """The script's own safetensors writer: ``items`` are (name, dtype,
+    shape, make) in the checkpoint's order, each made on the card one at a
+    time; shards of at most ``shard_bytes`` filled in order, the index
+    when there is more than one, and ``conf`` as config.json. Returns
+    (bytes of tensor data, number of shards)."""
+    shards, size, total = [[]], 0, 0
+    for item in items:
+        n = math.prod(item[2]) * torch.empty((), dtype=item[1]).element_size()
+        if shards[-1] and size + n > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append((item, n))
+        size += n
+        total += n
+    os.makedirs(path, exist_ok=True)
+    weight_map = {}
+    for s, shard in enumerate(shards):
+        name = (f"model-{s + 1:05d}-of-{len(shards):05d}.safetensors"
+                if len(shards) > 1 else "model.safetensors")
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for (key, dtype, shape, _), n in shard:
+            header[key] = {"dtype": ST_NAMES[str(dtype)], "shape": list(shape),
+                           "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[key] = name
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(path, name), "wb") as f:
+            f.write(len(raw).to_bytes(8, "little"))
+            f.write(raw)
+            for (key, dtype, shape, make), n in shard:
+                t = make().contiguous()
+                if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+                    fail(f"hf_openai: {key} made {t.dtype}{tuple(t.shape)}")
+                f.write(t.view(torch.uint8).cpu().numpy())
+            f.flush()
+            os.fsync(f.fileno())
+    if len(shards) > 1:
+        with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(conf, f, indent=2)
+    return total, len(shards)
+
+
+def hf_items_from_tree(torch, params, cfg, dtype):
+    """The port's stacked tree as HF's per-layer (out, in) tensors in
+    ``dtype``, in Meta's order: q/k rows put back in half-split order."""
+    hd = cfg.head_dim
+    perm_q = half_split_rows(torch, cfg.n_heads, hd)
+    perm_k = half_split_rows(torch, cfg.n_kv_heads, hd)
+    lay = params["layers"]
+
+    def item(name, make, shape):
+        return (name, dtype, shape, lambda: make().to(dtype))
+
+    d, f = cfg.dim, cfg.ffn_dim
+    nq, nk = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    items = [item("model.embed_tokens.weight", lambda: params["embed"],
+                  (cfg.vocab_size, d))]
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        items += [
+            item(p + "self_attn.q_proj.weight",
+                 lambda i=i: lay["wq"][i].t().index_select(0, perm_q), (nq, d)),
+            item(p + "self_attn.k_proj.weight",
+                 lambda i=i: lay["wk"][i].t().index_select(0, perm_k), (nk, d)),
+            item(p + "self_attn.v_proj.weight", lambda i=i: lay["wv"][i].t(),
+                 (nk, d)),
+            item(p + "self_attn.o_proj.weight", lambda i=i: lay["wo"][i].t(),
+                 (d, nq)),
+            item(p + "mlp.gate_proj.weight", lambda i=i: lay["w_gate"][i].t(),
+                 (f, d)),
+            item(p + "mlp.up_proj.weight", lambda i=i: lay["w_up"][i].t(),
+                 (f, d)),
+            item(p + "mlp.down_proj.weight", lambda i=i: lay["w_down"][i].t(),
+                 (d, f)),
+            item(p + "input_layernorm.weight", lambda i=i: lay["attn_norm"][i],
+                 (d,)),
+            item(p + "post_attention_layernorm.weight",
+                 lambda i=i: lay["ffn_norm"][i], (d,))]
+    items += [item("model.norm.weight", lambda: params["final_norm"], (d,)),
+              item("lm_head.weight", lambda: params["lm_head"].t(),
+                   (cfg.vocab_size, d))]
+    return items
+
+
+def hf_random_weights(torch, conf, seed):
+    """HF-layout fp32 weights of ``conf`` drawn on the card from a seed:
+    (out, in) projections scaled by 1/sqrt(in), norms 1 + 0.1 N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, f, v = conf["hidden_size"], conf["intermediate_size"], conf["vocab_size"]
+    hd = d // conf["num_attention_heads"]
+    nq, nk = conf["num_attention_heads"] * hd, conf["num_key_value_heads"] * hd
+
+    def w(out, fan_in):
+        return torch.randn((out, fan_in), generator=g, device="cuda") / math.sqrt(fan_in)
+
+    def norm():
+        return 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")
+
+    out = {"model.embed_tokens.weight": w(v, d)}
+    for i in range(conf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        out.update({p + "self_attn.q_proj.weight": w(nq, d),
+                    p + "self_attn.k_proj.weight": w(nk, d),
+                    p + "self_attn.v_proj.weight": w(nk, d),
+                    p + "self_attn.o_proj.weight": w(d, nq),
+                    p + "mlp.gate_proj.weight": w(f, d),
+                    p + "mlp.up_proj.weight": w(f, d),
+                    p + "mlp.down_proj.weight": w(d, f),
+                    p + "input_layernorm.weight": norm(),
+                    p + "post_attention_layernorm.weight": norm()})
+    out.update({"model.norm.weight": norm(), "lm_head.weight": w(v, d)})
+    return out
+
+
+def hf_convention_forward(torch, w, conf, tokens):
+    """Logits (1, S, V) of HF's Llama forward, written out on the script's
+    HF-layout tensors: rotate_half RoPE with the llama3 frequency scaling,
+    RMSNorm, GQA causal attention, SwiGLU, fp32 throughout."""
+    d, nh, nkv = (conf["hidden_size"], conf["num_attention_heads"],
+                  conf["num_key_value_heads"])
+    hd, eps, s = d // nh, conf["rms_norm_eps"], tokens.shape[1]
+    inv = 1.0 / (conf["rope_theta"] ** (
+        torch.arange(0, hd, 2, dtype=torch.int64, device="cuda").float() / hd))
+    rs = conf.get("rope_scaling")
+    if rs:
+        factor, lo, hi = rs["factor"], rs["low_freq_factor"], rs["high_freq_factor"]
+        old = rs["original_max_position_embeddings"]
+        wavelen = 2 * math.pi / inv
+        scaled = torch.where(wavelen > old / lo, inv / factor, inv)
+        smooth = (old / wavelen - lo) / (hi - lo)
+        smoothed = (1 - smooth) * scaled / factor + smooth * scaled
+        medium = ~(wavelen < old / hi) & ~(wavelen > old / lo)
+        inv = torch.where(medium, smoothed, scaled)
+    ang = torch.outer(torch.arange(s, device="cuda").float(), inv)
+    emb = torch.cat((ang, ang), dim=-1)
+    cos, sin = emb.cos()[None, None], emb.sin()[None, None]
+
+    def rotate_half(x):
+        return torch.cat((-x[..., hd // 2:], x[..., :hd // 2]), dim=-1)
+
+    def rms(x, weight):
+        return weight * (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps))
+
+    mask = torch.full((s, s), float("-inf"), device="cuda").triu(1)
+    x = w["model.embed_tokens.weight"][tokens]
+    for i in range(conf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        h = rms(x, w[p + "input_layernorm.weight"])
+        q = (h @ w[p + "self_attn.q_proj.weight"].t()).view(1, s, nh, hd).transpose(1, 2)
+        k = (h @ w[p + "self_attn.k_proj.weight"].t()).view(1, s, nkv, hd).transpose(1, 2)
+        v = (h @ w[p + "self_attn.v_proj.weight"].t()).view(1, s, nkv, hd).transpose(1, 2)
+        q, k = q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+        k, v = (t.repeat_interleave(nh // nkv, dim=1) for t in (k, v))
+        att = torch.softmax(q @ k.transpose(2, 3) / math.sqrt(hd) + mask, dim=-1)
+        o = (att @ v).transpose(1, 2).reshape(1, s, d)
+        x = x + o @ w[p + "self_attn.o_proj.weight"].t()
+        h = rms(x, w[p + "post_attention_layernorm.weight"])
+        ffn = (torch.nn.functional.silu(h @ w[p + "mlp.gate_proj.weight"].t())
+               * (h @ w[p + "mlp.up_proj.weight"].t()))
+        x = x + ffn @ w[p + "mlp.down_proj.weight"].t()
+    return rms(x, w["model.norm.weight"]) @ w["lm_head.weight"].t()
+
+
+class RssPeak:
+    """The process's resident set sampled every 5 ms on a thread (from
+    /proc/self/statm): ``rise`` is the peak over the window less its start."""
+
+    def __enter__(self):
+        import threading
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self.now()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+        return self
+
+    def now(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def run(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, self.now())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.now())
+        self.rise = self.peak - self.start
+
+
+def named_leaves(tree) -> dict:
+    """{"layers/wq": leaf, ...} of a param tree."""
+    from kubetorch_tpu_torch.data_store import commands as ds
+    leaves = {}
+    ds._flatten(tree, "", leaves)
+    return leaves
+
+
+def check_tree_bitwise(torch, label, got, want):
+    """Same leaves, dtypes, shapes and bits."""
+    g, w = named_leaves(got), named_leaves(want)
+    if set(g) != set(w):
+        fail(f"{label}: leaves {sorted(g)} != {sorted(w)}")
+    bad = [k for k in w if g[k].dtype != w[k].dtype or g[k].shape != w[k].shape
+           or not torch.equal(g[k], w[k])]
+    print(f"{label}: {len(w)} leaves, bitwise equal: {not bad} {bad}",
+          flush=True)
+    if bad:
+        fail(f"{label}: leaves differ from the source tree: {bad}")
+
+
+class ByteTokenizer:
+    """A stand-in tokenizer for chat: UTF-8 bytes as ids 0-255."""
+
+    def encode(self, text):
+        return list(text.encode())
+
+    def decode(self, ids):
+        return bytes(i % 256 for i in ids).decode("utf-8", errors="replace")
+
+
+def counted(torch, label, launches, eng, prefills, layers, fn):
+    """Run ``fn`` with the launch counts set to 0 just before and read
+    just after; A1 must have launched ``layers`` times per from-zero
+    prefill and B1 ``layers`` times per decode step. Returns (fn's
+    result, the counts)."""
+    steps0 = eng.stats().decode_steps if eng is not None else 0
+    launches.zero()
+    out = fn()
+    torch.cuda.synchronize()
+    got = launches.read()
+    steps = (eng.stats().decode_steps - steps0) if eng is not None else 0
+    check_launches(label, got, dict(flash_fwd=layers * prefills,
+                                    decode_attention=layers * steps,
+                                    decode_attention_quant=0))
+    return out, got
+
+
+def api_ok(label, status, payload):
+    if status != 200:
+        fail(f"{label}: status {status}: {payload}")
+    return payload
+
+
+def stream_window_rate(times):
+    """Tokens/s over the window in which every stream is decoding: from the
+    last stream's first token to the first stream's last."""
+    t0 = max(ts[0] for ts in times)
+    t1 = min(ts[-1] for ts in times)
+    n = sum(1 for ts in times for t in ts if t0 < t <= t1)
+    return n / (t1 - t0)
+
+
+def drive_hf_openai(torch, ops_attn, ops_dec, card):
+    """Meta-Llama-3-8B's published checkpoint layout in and out, and the
+    OpenAI surface over an engine on the loaded weights. Returns
+    (launch totals of the counted runs, the phase's numbers)."""
+    import resource
+    import shutil
+    import tempfile
+    import threading
+
+    from kubetorch_tpu_torch.models import load_hf, save_hf
+    from kubetorch_tpu_torch.models.llama import (LlamaConfig, llama_forward,
+                                                  llama_hidden, llama_init)
+    from kubetorch_tpu_torch.serve import GenerationEngine, OpenAIApp
+
+    t_phase = time.perf_counter()
+    launches = Launches(ops_attn, ops_dec)
+    totals = dict(flash_fwd=0, decode_attention=0)
+    rec = {}
+
+    def add(got):
+        for k in totals:
+            totals[k] += got[k]
+
+    cfg = LlamaConfig.llama3_8b()
+    L = cfg.n_layers
+    bytes_8b = cfg.param_count() * 2
+    conf2 = dict(META_LLAMA3_8B, num_hidden_layers=HF_FWD_LAYERS,
+                 torch_dtype="float32", rope_scaling=LLAMA31_ROPE_SCALING,
+                 max_position_embeddings=131072)
+    bytes_2l = dataclasses.replace(cfg, n_layers=HF_FWD_LAYERS).param_count() * 4
+    need = max(bytes_8b, 2 * bytes_2l) + 10 ** 9
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "hf_checkpoints")
+    os.makedirs(base, exist_ok=True)
+    free = shutil.disk_usage(base).free
+    print(f"hf_openai: disk needed {need} bytes, free {free} bytes in {base}",
+          flush=True)
+    if free < need:
+        fail(f"hf_openai: {need} bytes of disk needed for the checkpoints, "
+             f"{free} free in {base}")
+    root = tempfile.mkdtemp(prefix="hf_openai-", dir=base)
+    try:
+        # 1. the seed tree, norms from a seed rounded to bf16, written out
+        src = llama_init(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(HF_NORM_SEED)
+        for tree, key, shape in ((src["layers"], "attn_norm", (L, cfg.dim)),
+                                 (src["layers"], "ffn_norm", (L, cfg.dim)),
+                                 (src, "final_norm", (cfg.dim,))):
+            tree[key] = (1.0 + 0.1 * torch.randn(shape, generator=g, device="cuda")
+                         ).to(torch.bfloat16).float()
+        dir1 = os.path.join(root, "Meta-Llama-3-8B")
+        t = time.perf_counter()
+        nbytes, shards = write_hf_checkpoint(
+            torch, dir1, META_LLAMA3_8B,
+            hf_items_from_tree(torch, src, cfg, torch.bfloat16))
+        write_s = time.perf_counter() - t
+        with open(os.path.join(dir1, "model.safetensors.index.json")) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+        print(f"hf_openai: wrote {dir1}: {nbytes} bytes in {shards} shards "
+              f"{files} in {write_s:.2f}s ({nbytes / write_s / 1e9:.2f} GB/s, "
+              f"fsync'd)", flush=True)
+        if shards != HF_SHARDS or nbytes != bytes_8b:
+            fail(f"hf_openai: {shards} shards of {nbytes} bytes, expected "
+                 f"{HF_SHARDS} of {bytes_8b}")
+
+        # 2. load_hf onto the card: every leaf the seed tree's bits
+        maxrss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        torch.cuda.synchronize()
+        with RssPeak() as rss:
+            t = time.perf_counter()
+            loaded, lcfg = load_hf(dir1, max_seq_len=2048)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+        maxrss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        dev_bytes = sum(v.numel() * v.element_size()
+                        for v in named_leaves(loaded).values())
+        rec["load"] = dict(seconds=load_s, gb_per_s=nbytes / load_s / 1e9,
+                           host_rss_rise_bytes=rss.rise,
+                           ru_maxrss_rise_bytes=(maxrss1 - maxrss0) * 1024,
+                           device_bytes=dev_bytes, write_seconds=write_s,
+                           write_gb_per_s=nbytes / write_s / 1e9)
+        print(f"hf_openai: load_hf {load_s:.2f}s ({nbytes / load_s / 1e9:.2f} "
+              f"GB/s from the page cache), host RSS rise {rss.rise} bytes "
+              f"(sampled; ru_maxrss rise {(maxrss1 - maxrss0) * 1024}), device "
+              f"{dev_bytes} bytes, cfg {lcfg} card={card}", flush=True)
+        if lcfg != dataclasses.replace(cfg, max_seq_len=2048):
+            fail(f"hf_openai: loaded config {lcfg}")
+        if loaded["embed"].device.type != "cuda":
+            fail(f"hf_openai: load_hf landed on {loaded['embed'].device}")
+        check_tree_bitwise(torch, "hf_openai load_hf vs the seed tree", loaded,
+                           src)
+        del src
+        shutil.rmtree(dir1)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. 2 layers, fp32, Llama-3.1 scaling: the port's forward against
+        # the HF-convention one; then save_hf and back
+        w = hf_random_weights(torch, conf2, HF_FWD_SEED)
+        dir2, dir3 = os.path.join(root, "fp32-2l"), os.path.join(root, "export")
+        write_hf_checkpoint(torch, dir2, conf2,
+                            [(k, torch.float32, tuple(v.shape), lambda v=v: v)
+                             for k, v in w.items()])
+        p2, cfg2 = load_hf(dir2, dtype=torch.float32, max_seq_len=2048)
+        if cfg2.rope_scaling != (8.0, 1.0, 4.0, 8192):
+            fail(f"hf_openai: rope_scaling {cfg2.rope_scaling}")
+        gen = torch.Generator(device="cuda").manual_seed(HF_FWD_SEED)
+        rels = []
+
+        def forwards():
+            for n in HF_FWD_PROMPTS:
+                toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                                     device="cuda")
+                got = llama_forward(p2, toks, cfg2)
+                with torch.no_grad():
+                    want = hf_convention_forward(torch, w, conf2, toks)
+                if not (torch.isfinite(got).all() and got.shape == want.shape):
+                    fail("hf_openai: fp32 logits not finite or misshapen")
+                rels.append(float((got - want).norm() / want.norm()))
+
+        _, got = counted(torch, "hf_openai fp32 forward", launches, None,
+                         len(HF_FWD_PROMPTS), HF_FWD_LAYERS, forwards)
+        add(got)
+        print(f"hf_openai: 2-layer fp32 logits vs the HF-convention forward "
+              f"(rotate_half, llama3 scaling), rel L2 per prompt "
+              f"{dict(zip(HF_FWD_PROMPTS, rels))} tol {HF_FWD_REL_L2}",
+              flush=True)
+        if not max(rels) <= HF_FWD_REL_L2:
+            fail(f"hf_openai: fp32 logits differ from HF's forward: {rels}")
+        del w
+        t = time.perf_counter()
+        save_hf(p2, cfg2, dir3)
+        save_s = time.perf_counter() - t
+        saved = sum(os.path.getsize(os.path.join(dir3, f))
+                    for f in os.listdir(dir3) if f.endswith(".safetensors"))
+        back, _ = load_hf(dir3, dtype=torch.float32, max_seq_len=2048)
+        check_tree_bitwise(torch, "hf_openai save_hf round trip", back, p2)
+        rec["save"] = dict(seconds=save_s, gb_per_s=saved / save_s / 1e9,
+                           bytes=saved, fwd_rel_l2=rels)
+        print(f"hf_openai: save_hf {saved} bytes in {save_s:.2f}s "
+              f"({saved / save_s / 1e9:.2f} GB/s) card={card}", flush=True)
+        del p2, back
+        shutil.rmtree(dir2)
+        shutil.rmtree(dir3)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. the OpenAI surface over an engine on the loaded tree
+        eng = GenerationEngine(loaded, lcfg, auto_prefix=True, device="cuda",
+                               **FEATURE_GRID).start()
+        app, chat_app = OpenAIApp(eng), OpenAIApp(eng, ByteTokenizer())
+        rng = np.random.default_rng(HF_FWD_SEED)
+
+        def prompt(n):
+            return rng.integers(0, cfg.vocab_size, n).tolist()
+
+        for n in (100, 200, 400, 800, 1500):     # warm-up, not counted
+            eng.generate(prompt(n), 2)
+
+        def complete(p, **kw):
+            body = dict(prompt=p, max_tokens=MAX_NEW, temperature=0)
+            body.update(kw)
+            return api_ok("hf_openai", *app._serve(body, chat=False))
+
+        prompts = [prompt(n) for n in ENGINE_PROMPT_LENS]
+        seq, got = counted(torch, "hf_openai sequential", launches, eng,
+                           len(prompts), L,
+                           lambda: [complete(p, logprobs=1) for p in prompts])
+        add(got)
+        seq_ids = [r["choices"][0]["token_ids"] for r in seq]
+        seq_lps = [r["choices"][0]["logprobs"]["token_logprobs"] for r in seq]
+        for r in seq:
+            c = r["choices"][0]
+            if (len(c["token_ids"]) != MAX_NEW or c["finish_reason"] != "length"
+                    or r["usage"]["completion_tokens"] != MAX_NEW):
+                fail(f"hf_openai: sequential response {r}")
+        direct, got = counted(
+            torch, "hf_openai engine.generate", launches, eng, len(API_PARITY),
+            L, lambda: [eng.generate(prompts[i], MAX_NEW, temperature=0)
+                        for i in API_PARITY])
+        add(got)
+        same = [seq_ids[i] == d for i, d in zip(API_PARITY, direct)]
+        print(f"hf_openai: sequential completions == engine.generate: {same}",
+              flush=True)
+        if not all(same):
+            fail("hf_openai: the API's greedy tokens differ from engine.generate")
+
+        # streaming, logprobs, a token-id stop
+        def streamed():
+            status, stream = app._serve(dict(prompt=prompts[0],
+                                             max_tokens=MAX_NEW, temperature=0,
+                                             stream=True), chat=False)
+            api_ok("hf_openai stream", status, stream)
+            return list(stream)
+
+        def handle_logprobs():
+            h = eng.submit(prompts[0], MAX_NEW, temperature=0)
+            return h.result(), h.logprobs
+
+        (chunks, (h_ids, h_lps), stopped), got = counted(
+            torch, "hf_openai stream/logprobs/stop", launches, eng, 3, L,
+            lambda: (streamed(), handle_logprobs(),
+                     complete(prompts[0], stop=[seq_ids[0][2:4]])))
+        add(got)
+        s_ids = [t for c in chunks for t in c["choices"][0]["token_ids"]]
+        finish = chunks[-1]["choices"][0]["finish_reason"]
+        c = stopped["choices"][0]
+        print(f"hf_openai: stream of {len(chunks)} chunks == blocking: "
+              f"{s_ids == seq_ids[0]} (finish {finish}); logprobs == the "
+              f"handle's: {seq_lps[0] == h_lps} (ids {h_ids == seq_ids[0]}); "
+              f"token-id stop {seq_ids[0][2:4]} -> {c['token_ids']} "
+              f"{c['finish_reason']}", flush=True)
+        if s_ids != seq_ids[0] or finish != "length":
+            fail("hf_openai: streamed chunks differ from the blocking call")
+        if seq_lps[0] != h_lps or h_ids != seq_ids[0]:
+            fail("hf_openai: logprobs differ from the handle's")
+        if (c["finish_reason"] != "stop" or c["token_ids"][-2:] != seq_ids[0][2:4]
+                or c["token_ids"] != seq_ids[0][:len(c["token_ids"])]):
+            fail(f"hf_openai: token-id stop gave {c}")
+
+        # chat through the stand-in tokenizer; seeded n = 2
+        messages = [{"role": "user", "content": "Name three prime numbers."}]
+        chat_prompt = chat_app._chat_prompt(messages)
+
+        def chat_and_seeds():
+            chat = api_ok("hf_openai chat", *chat_app._serve(
+                dict(messages=messages, max_tokens=16, temperature=0),
+                chat=True))
+            seeded = [api_ok("hf_openai seeded", *app._serve(
+                dict(prompt=prompts[1], max_tokens=16, temperature=1.0, n=2,
+                     seed=11), chat=False)) for _ in range(2)]
+            return chat, seeded
+
+        (chat, seeded), got = counted(torch, "hf_openai chat/seeds", launches,
+                                      eng, 5, L, chat_and_seeds)
+        add(got)
+        msg = chat["choices"][0]["message"]
+        runs = [[tuple(c["token_ids"]) for c in r["choices"]] for r in seeded]
+        print(f"hf_openai: chat ({len(chat_prompt)}-token prompt) -> "
+              f"{len(msg['token_ids'])} token_ids, object {chat['object']}; "
+              f"seeded n=2 reproducible {runs[0] == runs[1]}, distinct "
+              f"{runs[0][0] != runs[0][1]}", flush=True)
+        if (chat["object"] != "chat.completion" or len(msg["token_ids"]) != 16
+                or msg["content"] != chat_app._decode(msg["token_ids"])):
+            fail(f"hf_openai: chat response {chat}")
+        if runs[0] != runs[1] or runs[0][0] == runs[0][1]:
+            fail(f"hf_openai: seeded n=2 choices {runs}")
+
+        # concurrent load: the 12 prompts from 12 threads across 8 slots
+        def concurrent():
+            out = [None] * len(prompts)
+
+            def one(i):
+                out[i] = app._serve(dict(prompt=prompts[i], max_tokens=MAX_NEW,
+                                         temperature=0, logprobs=1),
+                                    chat=False)
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            return out
+
+        t = time.perf_counter()
+        conc, got = counted(torch, "hf_openai concurrent", launches, eng,
+                            len(prompts), L, concurrent)
+        conc_s = time.perf_counter() - t
+        add(got)
+        equal, lp_diff = 0, 0.0
+        for i, (status, r) in enumerate(conc):
+            c = api_ok("hf_openai concurrent", status, r)["choices"][0]
+            ids, lps = c["token_ids"], c["logprobs"]["token_logprobs"]
+            if (len(ids) != MAX_NEW or c["finish_reason"] != "length"
+                    or not all(0 <= x < cfg.vocab_size for x in ids)):
+                fail(f"hf_openai: concurrent response {i}: {c}")
+            if ids[0] != seq_ids[i][0]:
+                fail(f"hf_openai: concurrent request {i}'s first token "
+                     f"{ids[0]} != sequential {seq_ids[i][0]}")
+            lp_diff = max(lp_diff, abs(lps[0] - seq_lps[i][0]))
+            equal += ids == seq_ids[i]
+        print(f"hf_openai: 12 concurrent requests in {conc_s:.2f}s: first "
+              f"tokens == sequential, first logprobs max |diff| {lp_diff} "
+              f"(tol {API_FIRST_LP_ABS}); {equal} of 12 continuations equal",
+              flush=True)
+        if not lp_diff <= API_FIRST_LP_ABS:
+            fail(f"hf_openai: first logprobs differ by {lp_diff}")
+        rec["concurrent"] = dict(seconds=conc_s, equal_continuations=equal,
+                                 first_lp_max_abs=lp_diff)
+
+        # a registered 1000-token prefix, matched by auto_prefix
+        prefix, suffix = prompt(PREFIX_LEN), prompt(API_PREFIX_SUFFIX)
+
+        def prefixed():
+            one = complete(prefix + suffix, max_tokens=4)
+            reg = api_ok("hf_openai prefix", *app.add_prefix({"tokens": prefix}))
+            hits = eng._prefix_hits
+            hit = complete(prefix + suffix, max_tokens=4)
+            return one, reg, eng._prefix_hits - hits, hit
+
+        (one, reg, hits, hit), got = counted(torch, "hf_openai prefix",
+                                             launches, eng, 2, L, prefixed)
+        add(got)
+        pid = reg["prefix_id"]
+        gone, again = app.remove_prefix(pid), app.remove_prefix(pid)
+        first = (one["choices"][0]["token_ids"][0],
+                 hit["choices"][0]["token_ids"][0])
+        print(f"hf_openai: prefix {reg} hits {hits}; first token one-shot / "
+              f"through the prefix {first}; unregister {gone}, again {again}",
+              flush=True)
+        if reg["n_tokens"] != PREFIX_LEN or hits != 1 or first[0] != first[1]:
+            fail("hf_openai: the prefix path's first token differs")
+        if gone != (200, {"deleted": pid}) or again != (404, {"error": {
+                "message": f"unknown prefix_id {pid}", "type": "not_found",
+                "param": None, "code": None}}):
+            fail(f"hf_openai: unregister gave {gone}, {again}")
+
+        # embeddings against the pooled plain-attention hidden states
+        inputs = [prompt(n) for n in API_EMBED_LENS]
+
+        def embed_each():
+            out = []
+            for ids in inputs:
+                t = time.perf_counter()
+                r = api_ok("hf_openai embeddings", *app.embed({"input": ids}))
+                out.append((r, (time.perf_counter() - t) * 1e3))
+            return out
+
+        embs, got = counted(torch, "hf_openai embeddings", launches, eng,
+                            len(inputs), L, embed_each)
+        add(got)
+        both = api_ok("hf_openai embeddings", *app.embed({"input": inputs}))
+        cfg_x = dataclasses.replace(lcfg, attn_impl="xla")
+        rels, ms = [], [m for _, m in embs]
+        for i, (ids, (r, _)) in enumerate(zip(inputs, embs)):
+            e = torch.tensor(r["data"][0]["embedding"], device="cuda")
+            with torch.no_grad():
+                want = llama_hidden(loaded, torch.tensor([ids], device="cuda"),
+                                    cfg_x).float().mean(dim=1)[0]
+            if not (torch.isfinite(e).all() and e.shape == (cfg.dim,)):
+                fail("hf_openai: an embedding is not finite or misshapen")
+            if r["usage"]["prompt_tokens"] != len(ids):
+                fail(f"hf_openai: embeddings usage {r['usage']}")
+            if both["data"][i]["embedding"] != r["data"][0]["embedding"]:
+                fail("hf_openai: a 3-input body's embedding differs from "
+                     "the same input alone")
+            rels.append(float((e - want).norm() / want.norm()))
+        print(f"hf_openai: embeddings of {API_EMBED_LENS} tokens vs pooled "
+              f"plain-attention hidden states rel L2 {rels} tol "
+              f"{LOGITS_REL_L2}; ms per input {ms}", flush=True)
+        if not max(rels) <= LOGITS_REL_L2:
+            fail(f"hf_openai: embeddings differ from the plain path: {rels}")
+        rec["embeddings"] = dict(rel_l2=rels, ms=ms, tokens=API_EMBED_LENS)
+
+        # the JSON layer's cost: time to the first SSE chunk against a
+        # direct submit's first token, alternating
+        p200 = prompt(200)
+
+        def first_times():
+            direct, api = [], []
+            for _ in range(API_TTFC_REPS):
+                t = time.perf_counter()
+                h = eng.submit(p200, 8, temperature=0)
+                it = iter(h)
+                next(it)
+                direct.append(time.perf_counter() - t)
+                list(it)
+                t = time.perf_counter()
+                _, stream = app._serve(dict(prompt=p200, max_tokens=8,
+                                            temperature=0, stream=True),
+                                       chat=False)
+                it = iter(stream)
+                next(it)
+                api.append(time.perf_counter() - t)
+                list(it)
+            return direct, api
+
+        (direct_s, api_s), got = counted(torch, "hf_openai first chunk",
+                                         launches, eng, 2 * API_TTFC_REPS, L,
+                                         first_times)
+        add(got)
+
+        # 8 streams of 40-token prompts, through the surface and alone
+        short = [prompt(40) for _ in range(8)]
+
+        def engine_streams():
+            hs = [eng.submit(p, API_STREAM_NEW, temperature=0) for p in short]
+            threads, times = stream_times(hs)
+            for th in threads:
+                th.join()
+            return times, [h.result() for h in hs]
+
+        def api_streams():
+            times = [[] for _ in short]
+            ids = [[] for _ in short]
+            streams = [app._serve(dict(prompt=p, max_tokens=API_STREAM_NEW,
+                                       temperature=0, stream=True),
+                                  chat=False)[1] for p in short]
+
+            def drain(s, ts, out):
+                for c in s:
+                    if c["choices"][0]["token_ids"]:
+                        ts.append(time.perf_counter())
+                        out += c["choices"][0]["token_ids"]
+            threads = [threading.Thread(target=drain, args=a)
+                       for a in zip(streams, times, ids)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            return times, ids
+
+        (e_times, e_ids), got = counted(torch, "hf_openai engine streams",
+                                        launches, eng, 8, L, engine_streams)
+        add(got)
+        (a_times, a_ids), got = counted(torch, "hf_openai API streams",
+                                        launches, eng, 8, L, api_streams)
+        add(got)
+        e_rate, a_rate = stream_window_rate(e_times), stream_window_rate(a_times)
+        print(f"hf_openai: first SSE chunk {sorted(api_s)} s vs direct submit "
+              f"{sorted(direct_s)} s (200-token prompt, idle grid); 8 streams "
+              f"x {API_STREAM_NEW} tokens: through the surface {a_rate:.1f} "
+              f"tok/s, the engine alone {e_rate:.1f} tok/s, equal tokens "
+              f"{a_ids == e_ids} card={card}", flush=True)
+        if any(len(x) != API_STREAM_NEW for x in a_ids + e_ids):
+            fail("hf_openai: a stream came back short")
+        rec["json_layer"] = dict(
+            first_chunk_s=sorted(api_s), direct_first_token_s=sorted(direct_s),
+            api_tok_per_s=a_rate, engine_tok_per_s=e_rate)
+        eng.stop()
+        del eng, app, chat_app, loaded
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["launches"] = totals
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"hf_openai: phase wall {rec['wall_s']:.1f}s, launches {totals}",
+          flush=True)
+    return totals, rec
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3372,6 +4164,7 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    print(f"packages the port does without: {installed_versions()}", flush=True)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:
@@ -3392,6 +4185,9 @@ def main() -> None:
     t = time.perf_counter()
     flash_n, decode_n, feat_n, lora_n, lora_train, spec_n, spec = drive_engine(
         torch, ops_attn, ops_dec, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hf_n, hf = drive_hf_openai(torch, ops_attn, ops_dec, card)
     gc.collect()
     torch.cuda.empty_cache()
     quant_n, qfeat_n, qlora_n, qspec_n, spec["spec_q4"] = drive_engine_quant(
@@ -3425,6 +4221,7 @@ def main() -> None:
                                        lora_train["serve"].items()}),
              rollout=dict(launches=rollout_n["flash_fwd"]),
              checkpoint=dict(launches=checkpoint_n[0]),
+             hf_openai=dict(launches=hf_n["flash_fwd"]),
              serving=dict(launches=flash_n, **flash),
              serving_quant=dict(launches=quant_n["flash_fwd"]),
              engine_features=dict(launches=feat_n["flash_fwd"]),
@@ -3444,6 +4241,7 @@ def main() -> None:
              lora_serve=dict(launches={w: n["decode_attention"] for w, n in
                                        lora_train["serve"].items()}),
              rollout=dict(launches=rollout_n["decode_attention"]),
+             hf_openai=dict(launches=hf_n["decode_attention"]),
              engine_features=dict(launches=feat_n["decode_attention"]),
              lora=dict(launches=lora_n["decode_attention"]),
              spec=dict(launches=spec_n["spec"]["decode_attention"]),
@@ -3484,6 +4282,7 @@ def main() -> None:
              verify_window=q4_window),
     ]
     print(f"spec: {json.dumps(spec)}", flush=True)
+    print(f"hf_openai: {json.dumps(hf)} card={card}", flush=True)
     print(f"train: {json.dumps(dict(llama_1b=train, **trains))} card={card}",
           flush=True)
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -6,8 +6,8 @@ counterpart is found at the same path. It imports nothing from
 ``kubetorch_tpu`` and never imports ``jax``: what it needs from there it
 keeps its own copy of.
 
-Entry points (``llama_init``, ``generate``, ``GenerationEngine``,
-``make_train_step``) run on ``cuda`` unless the caller passes
+Entry points (``llama_init``, ``load_hf``, ``generate``,
+``GenerationEngine``, ``make_train_step``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU request they raise.
 Every kernel the JAX package wrote in Pallas for this path is a
 hand-written CUDA kernel here (``csrc/``), built with ``nvcc`` at first

@@ -1,10 +1,26 @@
 """Model families of the port: Llama, Mixtral-style MoE and LoRA adapters,
-under the JAX package's names (``kubetorch_tpu/models``)."""
+under the JAX package's names (``kubetorch_tpu/models``), and the Hugging
+Face checkpoint import/export (``convert_hf``)."""
 
 from .llama import LlamaConfig, llama_forward, llama_init, llama_loss
 from .lora import LoraConfig, lora_init, lora_loss, merge_lora
 from .moe import MoeConfig, moe_forward, moe_init, moe_loss
 
+
+def load_hf(path: str, device=None, **config_overrides):
+    """HF checkpoint dir → ``(params, cfg)`` on ``device`` (see
+    ``convert_hf.load_hf``)."""
+    from .convert_hf import load_hf as _load
+    return _load(path, device=device, **config_overrides)
+
+
+def save_hf(params, cfg, path: str) -> None:
+    """Our tree → a HF ``save_pretrained`` dir (the reverse trip)."""
+    from .convert_hf import save_hf as _save
+    return _save(params, cfg, path)
+
+
 __all__ = ["LlamaConfig", "llama_init", "llama_forward", "llama_loss",
            "LoraConfig", "lora_init", "lora_loss", "merge_lora",
-           "MoeConfig", "moe_init", "moe_forward", "moe_loss"]
+           "MoeConfig", "moe_init", "moe_forward", "moe_loss", "load_hf",
+           "save_hf"]

@@ -2,7 +2,9 @@
 for it, its int8 KV cache, speculative decoding (one request, and the
 engine with a draft model), the session binder that keeps a session's
 prompt resident as a cached prefix, and the live weight rollout that swaps
-published weights into a running engine."""
+published weights into a running engine; and the OpenAI-compatible
+surface over an engine (``openai_api``, loaded on first use: its HTTP
+shell needs aiohttp, which engine users never do)."""
 
 from ..models.quant import (dequantize_params, llama_init_quantized,
                             quantize_params, quantize_params_int4,
@@ -22,4 +24,11 @@ __all__ = ["EngineStats", "GenerationEngine", "RequestHandle",
            "quantize_params", "quantize_params_int4", "llama_init_quantized",
            "dequantize_params", "quantized_bytes",
            "QuantKVCache", "init_quant_cache", "quantize_rows",
-           "dequantize_rows"]
+           "dequantize_rows", "OpenAIApp", "build_openai_app"]
+
+
+def __getattr__(name):
+    if name in ("OpenAIApp", "build_openai_app"):
+        from .openai_api import OpenAIApp, build_app
+        return {"OpenAIApp": OpenAIApp, "build_openai_app": build_app}[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

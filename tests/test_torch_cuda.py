@@ -1211,3 +1211,84 @@ def test_rollout_swaps_in_place_without_device_memory(cuda):
     assert eng.params["layers"]["wq"] is held
     assert torch.equal(held, new["layers"]["wq"])
     assert tokens(eng) == tokens(engine(new))
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoints and the OpenAI surface
+# ---------------------------------------------------------------------------
+
+
+def _bf16_hf_dir(path, monkeypatch):
+    """A tiny Llama as a bf16 safetensors directory in three or more
+    shards: save_hf's fp32 export, each tensor rewritten in bf16."""
+    from kubetorch_tpu_torch.models import convert_hf
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    params = llama_init(cfg, seed=12, device="cpu")
+    params["layers"]["attn_norm"].add_(torch.linspace(-0.5, 0.5, 64))
+    fp32 = str(path / "fp32")
+    convert_hf.save_hf(params, cfg, fp32)
+    monkeypatch.setattr(convert_hf, "SHARD_BYTES", 60_000)
+    out = str(path / "bf16")
+    with convert_hf._SafetensorsReader(fp32) as reader:
+        items = [(name, torch.bfloat16, ref.shape,
+                  lambda ref=ref: ref.read(torch.device("cpu")).bfloat16())
+                 for name, ref in reader.refs.items()]
+        convert_hf._write_checkpoint(out, items)
+    with open(f"{fp32}/config.json") as f, open(f"{out}/config.json", "w") as g:
+        g.write(f.read())
+    return out
+
+
+def test_bf16_checkpoint_lands_on_the_card_bitwise(cuda, tmp_path, monkeypatch):
+    """Read through the pinned staging buffer, across shards, the card's
+    tree is the CPU's bit for bit, in bf16 and widened to fp32."""
+    from kubetorch_tpu_torch.models import load_hf
+    d = _bf16_hf_dir(tmp_path, monkeypatch)
+    for dtype in (torch.bfloat16, torch.float32):
+        on_card, cfg = load_hf(d, device=cuda, dtype=dtype)
+        on_cpu, _ = load_hf(d, device="cpu", dtype=dtype)
+        cpu_leaves = _named(on_cpu)
+        for name, a in _named(on_card).items():
+            assert a.is_cuda and a.dtype == cpu_leaves[name].dtype, name
+            assert torch.equal(a.cpu(), cpu_leaves[name]), name
+        assert on_card["layers"]["wq"].dtype == dtype
+
+
+def test_load_hf_defaults_to_the_card(cuda, tmp_path, monkeypatch):
+    from kubetorch_tpu_torch.models import load_hf
+    params, _ = load_hf(_bf16_hf_dir(tmp_path, monkeypatch))
+    assert all(t.is_cuda for t in _named(params).values())
+
+
+def _named(tree):
+    from kubetorch_tpu_torch.data_store.commands import _flatten
+    out = {}
+    _flatten(tree, "", out)
+    return out
+
+
+def test_plain_method_embeddings_on_the_card(cuda):
+    """/v1/embeddings through the plain method: A1 once per layer per
+    input (right-padded to the engine's bucket), within 5e-2 of the pooled
+    plain-attention hidden states over the real tokens."""
+    from kubetorch_tpu_torch.models.llama import llama_hidden
+    from kubetorch_tpu_torch.serve import OpenAIApp
+    cfg = LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=1, ffn_dim=512,
+                           max_seq_len=256, dtype=torch.bfloat16)
+    params = llama_init(cfg, seed=13, device=cuda)
+    eng = GenerationEngine(params, cfg, slots=2, max_len=256,
+                           prefill_buckets=(128,), device=cuda)
+    g = torch.Generator().manual_seed(13)
+    inputs = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+              for n in (100, 256, 7)]
+    flash_attention.launches = 0
+    status, data = OpenAIApp(eng).embed({"input": inputs})
+    assert status == 200 and flash_attention.launches == 3 * cfg.n_layers
+    plain = dataclasses.replace(cfg, attn_impl="xla")
+    for ids, item in zip(inputs, data["data"]):
+        got = torch.tensor(item["embedding"], device=cuda)
+        with torch.no_grad():
+            want = llama_hidden(params, torch.tensor([ids], device=cuda),
+                                plain).float().mean(dim=1)[0]
+        assert torch.isfinite(got).all() and got.shape == (cfg.dim,)
+        assert float((got - want).norm() / want.norm()) <= 5e-2
