@@ -232,7 +232,20 @@
    at 2 layers on an 8 x 8192 grid split 4 ways with bf16 and int8 grids:
    decode through B1's / B2's partial mode and the combine (the kernels
    line's launches for them), exact counts, first tokens and the first
-   decode step's logits against the plain engine.
+   decode step's logits against the plain engine. Then Mixtral on a mesh
+   ("moe_mesh"): the script as a torch rank (--moe-mesh-rank, a world of
+   1 over nccl, KT_MESH {"expert": -1}) trains Mixtral's width at 2 layers
+   through make_train_step(mesh=, rules=MOE_RULES) and the plain step
+   (losses and every param hash bitwise, A1/A2/A3 4/2/2 a step), then
+   serves the full int4/int8 Mixtral tree through GenerationEngine(mesh=)
+   and the plain engine (tokens, logprobs, first-token logits bitwise,
+   exact A1/B2/B3), each with ms per step, busy share and peak memory;
+   then 4 ranks of the script (--expert-rank) share the card in a gloo
+   group over {"expert": 2, "tensor": 2}, each holding 4 of the 8 experts
+   and half of F: one train step (the loss within LOSS_ABS of the plain
+   step's, the gradients' relative L2 printed) and 8 requests through the
+   mesh engine with a bf16 grid (B1; first tokens equal, the first decode
+   step's logits within LOGITS_REL_L2 of the plain engine's).
 8. Prints the speculative and training phases' numbers and the script's
    wall time, one
    JSON line of per-kernel numbers, the card line, and as the last line
@@ -388,6 +401,28 @@ CONTEXT_RANK_FLAG = "--context-serve-rank"
 CONTEXT_ENV = {"KT_MESH": '{"context": 4}'}
 CONTEXT_LAYERS, CONTEXT_NEW = 2, 16
 CONTEXT_PROMPTS = (40, 1000, 2047, 2048, 3000, 5000, 6143, 7000)
+# Mixtral on a mesh ("moe_mesh"): the script again as a torch rank
+# (moe_mesh_rank), a world of 1 over nccl with every axis dead: the MoE
+# train step at Mixtral's width and MOE_TRAIN_LAYERS layers, MESH_STEPS
+# steps through make_train_step(mesh=, rules=MOE_RULES) then the plain
+# step, and the full quantized Mixtral tree served through
+# GenerationEngine(mesh=) then the plain engine. The rank's training peak
+# is ~52 GB, so the parent must hold less than this then
+MOE_MESH_RANK_FLAG = "--moe-mesh-rank"
+MOE_MESH_ENV = {"KT_MESH": '{"expert": -1}'}
+MOE_MESH_PARENT_GB = 20.0
+# then EXPERT_RANKS ranks of the script (expert_rank) sharing the card in a
+# gloo group over EXPERT_ENV's mesh: each holds 4 of the 8 experts and half
+# of each expert's F. Mixtral's width at EXPERT_LAYERS layers, bf16: one
+# train step at EXPERT_B x EXPERT_S (the loss within LOSS_ABS of the plain
+# step's on rank 0), then the EXPERT_PROMPTS, EXPERT_NEW new tokens each,
+# through the mesh engine with a bf16 grid (B1) against the plain engine:
+# first tokens equal, the first decode step's logits within LOGITS_REL_L2
+EXPERT_RANK_FLAG = "--expert-rank"
+EXPERT_ENV = {"KT_MESH": '{"expert": 2, "tensor": 2}'}
+EXPERT_RANKS, EXPERT_LAYERS, EXPERT_B, EXPERT_S = 4, 2, 1, 1024
+EXPERT_PROMPTS = (40, 128, 200, 300, 512, 700, 1000, 1500)
+EXPERT_NEW = 16
 # the tensor-core kernel functions of A1, A2 and A3, as the profiler's
 # kernel events name them
 FLASH_KERNEL_NAMES = ("flash_fwd_sm90", "bwd_dq_sm90", "bwd_dkv_sm90")
@@ -4678,6 +4713,26 @@ def fabric_rank() -> None:
                           trace_bytes=sum(sizes.values()))), flush=True)
 
 
+def run_rank(label, flag, env, timeout=600):
+    """This script again as rank 0 of a world of 1 (``flag``), with
+    TORCH_RANK_ENV, a free MASTER_PORT and ``env``: its output but the last
+    line printed, its last line (the record) returned. A rank that exits
+    non-zero fails the phase."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(TORCH_RANK_ENV, MASTER_PORT=str(free_tcp_port()), **env)
+    print(f"{label}: starting a torch rank with {env}", flush=True)
+    rank = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                          env=dict(os.environ, PYTHONPATH=here, **env),
+                          capture_output=True, text=True, timeout=timeout)
+    out = rank.stdout.strip().splitlines()
+    for line in out[:-1]:
+        print(line, flush=True)
+    if rank.returncode != 0:
+        fail(f"{label}: the torch rank exited {rank.returncode}: "
+             f"{rank.stderr[-3000:]}")
+    return json.loads(out[-1])
+
+
 def drive_mesh(card):
     """The training step on a device mesh ("mesh"): the script started
     again as a torch rank (MESH_RANK_FLAG), as drive_fabric starts one,
@@ -4685,20 +4740,7 @@ def drive_mesh(card):
     the work and fails the phase by exiting non-zero. Returns the mesh
     run's A1/A2/A3 launches and the phase's record."""
     t_phase = time.perf_counter()
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(TORCH_RANK_ENV, MASTER_PORT=str(free_tcp_port()), **MESH_ENV)
-    print(f"mesh: starting a torch rank with {env}", flush=True)
-    rank = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           MESH_RANK_FLAG],
-                          env=dict(os.environ, PYTHONPATH=here, **env),
-                          capture_output=True, text=True, timeout=600)
-    out = rank.stdout.strip().splitlines()
-    for line in out[:-1]:
-        print(line, flush=True)
-    if rank.returncode != 0:
-        fail(f"mesh: the torch rank exited {rank.returncode}: "
-             f"{rank.stderr[-3000:]}")
-    rec = json.loads(out[-1])
+    rec = run_rank("mesh", MESH_RANK_FLAG, MESH_ENV)
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"mesh: phase wall {rec['wall_s']:.1f}s card={card}", flush=True)
     return tuple(rec["launches"]["mesh"]), rec
@@ -5092,45 +5134,32 @@ def drive_mesh_serve(card):
     if not held < MESH_SERVE_PARENT_GB:
         fail(f"mesh_serve: the parent holds {held} GB (limit "
              f"{MESH_SERVE_PARENT_GB})")
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(TORCH_RANK_ENV, MASTER_PORT=str(free_tcp_port()), **MESH_ENV)
-    print(f"mesh_serve: starting a torch rank with {env}", flush=True)
-    rank = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           MESH_SERVE_RANK_FLAG],
-                          env=dict(os.environ, PYTHONPATH=here, **env),
-                          capture_output=True, text=True, timeout=600)
-    out = rank.stdout.strip().splitlines()
-    for line in out[:-1]:
-        print(line, flush=True)
-    if rank.returncode != 0:
-        fail(f"mesh_serve: the torch rank exited {rank.returncode}: "
-             f"{rank.stderr[-3000:]}")
-    rec = json.loads(out[-1])
+    rec = run_rank("mesh_serve", MESH_SERVE_RANK_FLAG, MESH_ENV)
     rec["context"] = drive_context_serve(card)
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"mesh_serve: phase wall {rec['wall_s']:.1f}s card={card}", flush=True)
     return rec["launches"]["mesh"], rec
 
 
-def drive_context_serve(card):
-    """Context-parallel serving on the one card: CONTEXT_SHARDS ranks of
-    this script (CONTEXT_RANK_FLAG), each a process with RANK/WORLD_SIZE/
-    MASTER_PORT and CONTEXT_ENV, all started together; context_serve_rank
-    does the work. A rank that fails stops the others; each rank's output
-    is kept in a temporary file. Returns rank 0's record (its last line)."""
+def spawn_ranks(label, flag, n, env, timeout=600):
+    """``n`` ranks of this script (``flag``), each a process with RANK/
+    WORLD_SIZE/MASTER_PORT and ``env``, all started together, sharing the
+    one card (LOCAL_RANK 0). A rank that fails stops the others; each
+    rank's output is kept in a temporary file. Returns rank 0's record
+    (its last line) with the wall seconds."""
     import tempfile
     t0 = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     port = str(free_tcp_port())
-    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(CONTEXT_SHARDS)]
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(n)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), CONTEXT_RANK_FLAG],
-        env=dict(os.environ, PYTHONPATH=here, RANK=str(r),
-                 WORLD_SIZE=str(CONTEXT_SHARDS), LOCAL_RANK="0",
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=port, **CONTEXT_ENV),
+        [sys.executable, os.path.abspath(__file__), flag],
+        env=dict(os.environ, PYTHONPATH=here, RANK=str(r), WORLD_SIZE=str(n),
+                 LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                 **env),
         stdout=log, stderr=subprocess.STDOUT, text=True)
         for r, log in enumerate(logs)]
-    deadline = time.monotonic() + 600
+    deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs) or \
@@ -5152,11 +5181,20 @@ def drive_context_serve(card):
         print(line, flush=True)
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
-        fail(f"mesh_serve context: ranks {bad} exited "
+        fail(f"{label}: ranks {bad} exited "
              f"{[procs[r].returncode for r in bad]}: "
              + " | ".join(texts[r][-1500:] for r in bad))
     rec = json.loads(out[-1])
     rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def drive_context_serve(card):
+    """Context-parallel serving on the one card: CONTEXT_SHARDS ranks of
+    this script (CONTEXT_RANK_FLAG) over CONTEXT_ENV (``spawn_ranks``);
+    context_serve_rank does the work. Returns rank 0's record."""
+    rec = spawn_ranks("mesh_serve context", CONTEXT_RANK_FLAG, CONTEXT_SHARDS,
+                      CONTEXT_ENV)
     print(f"mesh_serve context: {CONTEXT_SHARDS} ranks, wall {rec['wall_s']:.1f}s "
           f"card={card}", flush=True)
     return rec
@@ -5309,6 +5347,27 @@ def context_serve_rank() -> None:
               flush=True)
 
 
+def serve_timed(torch, eng, prompts):
+    """The engine phases' traffic on ``eng``: 6 requests up front, then one
+    more per step while the grid decodes, each step ending in a
+    synchronize. Returns (handles, wall seconds of each step that admitted
+    nothing)."""
+    handles, todo, decode_dt = [], list(prompts), []
+    handles += [eng.submit(q, max_new_tokens=MAX_NEW) for q in todo[:6]]
+    todo = todo[6:]
+    while True:
+        if todo:
+            handles.append(eng.submit(todo.pop(0), max_new_tokens=MAX_NEW))
+        before = eng.stats().admitted_total
+        t = time.perf_counter()
+        left = eng.step()
+        torch.cuda.synchronize()
+        if eng.stats().admitted_total == before:
+            decode_dt.append(time.perf_counter() - t)
+        if not left and not todo:
+            return handles, decode_dt
+
+
 def mesh_serve_rank() -> None:
     """One torch rank of "mesh_serve": distributed.init_process_group()
     (nccl) and distributed.mesh() from KT_MESH, a world of 1. Llama-3-8B at
@@ -5332,17 +5391,14 @@ def mesh_serve_rank() -> None:
         fail("mesh_serve rank: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from torch.distributed.tensor import DTensor
-
     from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
     from kubetorch_tpu_torch.ops import attention as ops_attn
     from kubetorch_tpu_torch.ops import decode_attention as ops_dec
     from kubetorch_tpu_torch.parallel import LLAMA_RULES
-    from kubetorch_tpu_torch.parallel.sharding import shard_pytree, tree_paths
+    from kubetorch_tpu_torch.parallel.sharding import shard_pytree
     from kubetorch_tpu_torch.serve import GenerationEngine
     from kubetorch_tpu_torch.serve import engine as engine_mod
     from kubetorch_tpu_torch.serving import distributed
-    from kubetorch_tpu_torch.train.optim import tree_leaves, tree_map
 
     cfg = LlamaConfig.llama3_8b()
     L = cfg.n_layers
@@ -5361,14 +5417,7 @@ def mesh_serve_rank() -> None:
             fail(f"mesh_serve: backend {dist.get_backend()} on {mesh.device_type}")
         params = llama_init(cfg, seed=0, device="cuda")
         sharded = shard_pytree(params, LLAMA_RULES, mesh)
-        bad = []
-        tree_map(lambda x, p: None if isinstance(x, DTensor) and list(
-            x.placements) == LLAMA_RULES.placements_for(p, mesh)
-            else bad.append(p), sharded, tree_paths(sharded))
-        print(f"mesh_serve: {len(tree_leaves(sharded))} param leaves DTensors "
-              f"in LLAMA_RULES' placements: {not bad} {bad[:4]}", flush=True)
-        if bad:
-            fail(f"mesh_serve: leaves not laid out by the rules: {bad}")
+        check_rules_layout(sharded, LLAMA_RULES, "LLAMA_RULES", mesh, "mesh_serve")
         runs = {}
         for name, p, kw in (("mesh", sharded, dict(mesh=mesh)),
                             ("plain", params, {})):
@@ -5385,21 +5434,7 @@ def mesh_serve_rank() -> None:
             with recorded_logits(engine_mod, "_prefill_logits") as first:
                 launches.zero()
                 steps0 = eng.stats().decode_steps
-                handles, todo, decode_dt = [], list(prompts), []
-                handles += [eng.submit(q, max_new_tokens=MAX_NEW) for q in todo[:6]]
-                todo = todo[6:]
-                while True:
-                    if todo:
-                        handles.append(eng.submit(todo.pop(0),
-                                                  max_new_tokens=MAX_NEW))
-                    before = eng.stats().admitted_total
-                    t = time.perf_counter()
-                    left = eng.step()
-                    torch.cuda.synchronize()
-                    if eng.stats().admitted_total == before:
-                        decode_dt.append(time.perf_counter() - t)
-                    if not left and not todo:
-                        break
+                handles, decode_dt = serve_timed(torch, eng, prompts)
                 got = launches.read()
             steps = eng.stats().decode_steps - steps0
             check_launches(f"mesh_serve: {name} engine, {len(prompts)} "
@@ -5466,6 +5501,555 @@ def mesh_serve_rank() -> None:
                profile={k: runs[k]["profile"] for k in runs},
                peak_memory_gb={k: runs[k]["peak_memory_gb"] for k in runs})
     print(json.dumps(rec), flush=True)
+
+
+def drive_moe_mesh(card):
+    """Mixtral on a mesh ("moe_mesh"): moe_mesh_rank as a world of 1 over
+    nccl, then the EXPERT_RANKS gloo ranks of expert_rank on the one card
+    (``spawn_ranks``). The parent must hold less than MOE_MESH_PARENT_GB
+    of the card. Returns the phase's record: the rank's "train" and
+    "serve", and "expert_ranks"."""
+    import torch
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"moe_mesh: the parent holds {held} GB of the card", flush=True)
+    if not held < MOE_MESH_PARENT_GB:
+        fail(f"moe_mesh: the parent holds {held} GB (limit {MOE_MESH_PARENT_GB})")
+    rec = run_rank("moe_mesh", MOE_MESH_RANK_FLAG, MOE_MESH_ENV)
+    rec["expert_ranks"] = spawn_ranks("expert_ranks", EXPERT_RANK_FLAG,
+                                      EXPERT_RANKS, EXPERT_ENV)
+    print(f"expert_ranks: {EXPERT_RANKS} ranks, wall "
+          f"{rec['expert_ranks']['wall_s']:.1f}s card={card}", flush=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"moe_mesh: phase wall {rec['wall_s']:.1f}s card={card}", flush=True)
+    return rec
+
+
+def local_leaves(tree):
+    """Each DTensor leaf's local block (at a world of 1, the whole leaf)."""
+    from torch.distributed.tensor import DTensor
+
+    from kubetorch_tpu_torch.train.optim import tree_map
+    return tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x, tree)
+
+
+def check_rules_layout(tree, rules, name, mesh, label):
+    """Every leaf a DTensor on ``mesh`` in the placements of ``rules``
+    (the table called ``name``)."""
+    from torch.distributed.tensor import DTensor
+
+    from kubetorch_tpu_torch.parallel.sharding import tree_paths
+    from kubetorch_tpu_torch.train.optim import tree_leaves, tree_map
+    bad = []
+    tree_map(lambda x, p: None if isinstance(x, DTensor) and x.device_mesh == mesh
+             and list(x.placements) == rules.placements_for(p, mesh)
+             else bad.append(p), tree, tree_paths(tree))
+    print(f"{label}: {len(tree_leaves(tree))} param leaves DTensors in "
+          f"{name}' placements: {not bad} {bad[:4]}", flush=True)
+    if bad:
+        fail(f"{label}: leaves not laid out by {name}: {bad}")
+
+
+def moe_mesh_train(torch, mesh, ops_attn):
+    """Mixtral's width at MOE_TRAIN_LAYERS layers, bf16, remat "dots",
+    default_optimizer, drive_moe_train's batch: MESH_STEPS steps through
+    make_train_step(mesh=, rules=MOE_RULES), the state freed, then
+    MESH_STEPS plain steps from the same seed. Gates: every param leaf a
+    DTensor in MOE_RULES' placements; the losses and every param leaf's
+    hash equal; A1/A2/A3 exactly 2L/L/L a step in both. Prints ms/step,
+    the busy share of MESH_PROFILED profiled steps and peak memory."""
+    from kubetorch_tpu_torch.models import moe as moe_mod
+    from kubetorch_tpu_torch.parallel import MOE_RULES
+    from kubetorch_tpu_torch.train import (default_optimizer,
+                                           init_train_state, make_train_step)
+
+    fa = ops_attn.flash_attention
+    cfg = moe_mod.MoeConfig.mixtral_8x7b(n_layers=MOE_TRAIN_LAYERS,
+                                         max_seq_len=TRAIN_S)
+    L = cfg.n_layers
+    opt = default_optimizer(warmup_steps=2)
+    batch = {k: v.cuda() for k, v in host_batch(torch, cfg.vocab_size, 7).items()}
+    runs = {}
+    for name, kw in (("mesh", dict(mesh=mesh, rules=MOE_RULES)), ("plain", {})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(moe_mod.moe_init(cfg, seed=0, device="cuda"), opt)
+        step = make_train_step(lambda p, t, y: moe_mod.moe_loss(p, t, y, cfg),
+                               opt, **kw)
+        if kw:
+            state = step.shard_state(state)
+            check_rules_layout(state.params, MOE_RULES, "MOE_RULES", mesh,
+                               "moe_mesh train")
+        fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        losses, times = [], []
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(m["loss"].item())
+        counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        check_launches(f"moe_mesh: {name} train run, {MESH_STEPS} steps (A1, A2, A3)",
+                       counts, (2 * L * MESH_STEPS, L * MESH_STEPS, L * MESH_STEPS))
+        hashes = leaf_hashes(torch, local_leaves(state.params))
+
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch)
+
+        prof = profile_steps(torch, f"moe_mesh: {name} train step, {MESH_PROFILED} "
+                             f"steps of {TRAIN_B}x{TRAIN_S}", one_step, MESH_PROFILED)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        runs[name] = dict(losses=losses, launches=counts, hashes=hashes,
+                          ms_per_step=[t * 1e3 for t in times],
+                          ms_per_warm_step=sum(times[1:]) / (len(times) - 1) * 1e3,
+                          profile=prof, peak_memory_gb=peak)
+        print(f"moe_mesh: {name} train run: losses {losses}; ms/step "
+              f"{runs[name]['ms_per_step']}; peak_memory_gb={peak}", flush=True)
+        del state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["mesh"], runs["plain"]
+    same = dict(losses=a["losses"] == b["losses"],
+                leaf_hashes=a["hashes"] == b["hashes"],
+                launches=a["launches"] == b["launches"])
+    share = {k: (r["profile"] or {}).get("device_busy_share")
+             for k, r in (("mesh", a), ("plain", b))}
+    print(f"moe_mesh: train, mesh step vs plain step over {MESH_STEPS} steps, "
+          f"bitwise: {same}; ms_per_step (steps 2-{MESH_STEPS}) mesh "
+          f"{a['ms_per_warm_step']} plain {b['ms_per_warm_step']}; device busy "
+          f"share mesh {share['mesh']} plain {share['plain']}; peak_memory_gb "
+          f"mesh {a['peak_memory_gb']} plain {b['peak_memory_gb']}", flush=True)
+    if not all(same.values()):
+        fail(f"moe_mesh: the MoE mesh step differs from the plain step: {same} "
+             f"(losses {a['losses']} vs {b['losses']})")
+    return dict(launches={k: r["launches"] for k, r in runs.items()},
+                bitwise=same, losses=a["losses"],
+                ms_per_warm_step={k: r["ms_per_warm_step"] for k, r in runs.items()},
+                profile={k: r["profile"] for k, r in runs.items()},
+                peak_memory_gb={k: r["peak_memory_gb"] for k, r in runs.items()})
+
+
+def moe_mesh_serve(torch, mesh, ops_attn, ops_dec, ops_q4):
+    """The full Mixtral-8x7B tree of drive_moe (int8 experts, int4
+    attention and head) laid out by shard_pytree(..., MOE_RULES, mesh)
+    (every quantized leaf replicated, as the rules leave it; at a world
+    of 1 the same storage), served through GenerationEngine(mesh=) with an
+    int8 grid of 8 slots x 2048 and then through the plain engine: the
+    engine phases' warm-up and 12 requests, 6 up front and one a step.
+    Gates: tokens, logprobs and every prefill's first-token logits bitwise
+    equal; A1, B2 and B3 exactly drive_moe's counts in both. Prints decode
+    ms/step (steps that admitted nothing), the busy share of 4 profiled
+    decode steps of a full grid and peak memory, for both."""
+    from kubetorch_tpu_torch.models.moe import MoeConfig
+    from kubetorch_tpu_torch.models.quant import Q4KEY
+    from kubetorch_tpu_torch.parallel import MOE_RULES
+    from kubetorch_tpu_torch.parallel.sharding import shard_pytree
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+    from kubetorch_tpu_torch.train.optim import tree_leaves
+
+    cfg = MoeConfig.mixtral_8x7b()
+    L = cfg.n_layers
+    params = mixtral_init_quantized(torch, cfg, seed=0)
+    sharded = shard_pytree(params, MOE_RULES, mesh)
+    check_rules_layout(sharded, MOE_RULES, "MOE_RULES", mesh, "moe_mesh serve")
+    shared = all(a.data_ptr() == b.data_ptr() for a, b in
+                 zip(tree_leaves(local_leaves(sharded)), tree_leaves(params)))
+    print(f"moe_mesh serve: at a world of 1 every laid-out leaf is the plain "
+          f"leaf's storage: {shared}", flush=True)
+    rng = np.random.default_rng(0)
+    warm = [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (100, 200, 400, 800, 1500)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in ENGINE_PROMPT_LENS]
+    head = params["lm_head"]
+    head_q4 = int(ops_q4.q4_supported((1, cfg.dim), head[Q4KEY].shape,
+                                      head["scale"].shape))
+    launches = Launches(ops_attn, ops_dec, ops_q4)
+    runs = {}
+    for name, p, kw in (("mesh", sharded, dict(mesh=mesh)), ("plain", params, {})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = GenerationEngine(p, cfg, slots=8, max_len=2048,
+                               prefill_buckets=(128, 256, 512, 1024),
+                               quantize_kv=True, device="cuda", **kw)
+        hs = [eng.submit(w, max_new_tokens=2) for w in warm]
+        while eng.step():
+            pass
+        for h in hs:
+            h.result(timeout=0)
+        with recorded_logits(engine_mod, "_prefill_logits") as first:
+            launches.zero()
+            steps0 = eng.stats().decode_steps
+            handles, decode_dt = serve_timed(torch, eng, prompts)
+            got = launches.read()
+        steps = eng.stats().decode_steps - steps0
+        check_launches(f"moe_mesh: {name} engine, {len(prompts)} prefills and "
+                       f"{steps} decode steps", got,
+                       dict(flash_fwd=L * len(prompts), decode_attention=0,
+                            decode_attention_quant=L * steps,
+                            q4_matmul=(4 * L + head_q4) * (len(prompts) + steps)))
+        outs = check_outputs(f"moe_mesh {name}", handles, cfg, prompts)
+        lps = [h.logprobs for h in handles]
+        hs = [eng.submit(q[:40], max_new_tokens=8) for q in prompts[:eng.slots]]
+        eng.step()
+        torch.cuda.synchronize()
+        prof = profile_steps(torch, f"moe_mesh: {name} engine: 4 decode steps, "
+                             "8 slots", eng.step, 4)
+        while eng.step():
+            pass
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ms_step = sum(decode_dt) / len(decode_dt) * 1e3
+        runs[name] = dict(tokens=outs, logprobs=lps, first=list(first),
+                          launches=got, ms_per_decode_step=ms_step,
+                          profile=prof, peak_memory_gb=peak)
+        print(f"moe_mesh: {name} engine: decode ms/step {ms_step} over "
+              f"{len(decode_dt)} steps that admitted nothing; peak_memory_gb="
+              f"{peak}", flush=True)
+        del eng, hs, handles
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["mesh"], runs["plain"]
+    same = dict(tokens=a["tokens"] == b["tokens"],
+                logprobs=a["logprobs"] == b["logprobs"],
+                first_token_logits=len(a["first"]) == len(b["first"]) and all(
+                    torch.equal(x, y) for x, y in zip(a["first"], b["first"])),
+                launches=a["launches"] == b["launches"])
+    share = {k: (r["profile"] or {}).get("device_busy_share")
+             for k, r in runs.items()}
+    print(f"moe_mesh: serve, mesh engine vs plain engine, bitwise: {same} "
+          f"({len(a['first'])} first-token logits); decode ms/step mesh "
+          f"{a['ms_per_decode_step']} plain {b['ms_per_decode_step']}; device "
+          f"busy share mesh {share['mesh']} plain {share['plain']}; "
+          f"peak_memory_gb mesh {a['peak_memory_gb']} plain "
+          f"{b['peak_memory_gb']}", flush=True)
+    if not all(same.values()):
+        fail(f"moe_mesh: the mesh engine differs from the plain engine: {same}")
+    del params, sharded
+    return dict(launches={k: r["launches"] for k, r in runs.items()},
+                bitwise=same, shared_storage=shared,
+                ms_per_decode_step={k: r["ms_per_decode_step"] for k, r in runs.items()},
+                profile={k: r["profile"] for k, r in runs.items()},
+                peak_memory_gb={k: r["peak_memory_gb"] for k, r in runs.items()})
+
+
+def moe_mesh_rank() -> None:
+    """The torch rank of "moe_mesh": distributed.init_process_group()
+    (nccl) and distributed.mesh() from KT_MESH (every axis dead at a
+    world of 1), then moe_mesh_train and moe_mesh_serve; the group is
+    destroyed in a finally. The record is the last line."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        fail("moe_mesh rank: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from kubetorch_tpu_torch.ops import attention as ops_attn
+    from kubetorch_tpu_torch.ops import decode_attention as ops_dec
+    from kubetorch_tpu_torch.ops import quant_matmul as ops_q4
+    from kubetorch_tpu_torch.serving import distributed
+
+    distributed.init_process_group()
+    try:
+        mesh = distributed.mesh()
+        print(f"moe_mesh: KT_MESH {os.environ.get('KT_MESH')} -> {mesh} over "
+              f"{dist.get_backend()}, world {dist.get_world_size()}", flush=True)
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+            fail(f"moe_mesh: backend {dist.get_backend()} on {mesh.device_type}")
+        train = moe_mesh_train(torch, mesh, ops_attn)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve = moe_mesh_serve(torch, mesh, ops_attn, ops_dec, ops_q4)
+    finally:
+        distributed.destroy()
+    if dist.is_initialized():
+        fail("moe_mesh: the process group outlived its phase")
+    print(json.dumps(dict(train=train, serve=serve)), flush=True)
+
+
+def route_dtensor_collectives_through_c10d() -> None:
+    """On gloo, DTensor's functional collectives crash (SIGSEGV) on CUDA
+    tensors, where c10d's eager all_reduce, all_gather_into_tensor and
+    reduce_scatter_tensor run (a 4-rank probe on the card, torch 2.11+cu128;
+    PERF.md "PR 16"). The gloo ranks that share the card ("expert_ranks")
+    route DTensor's collectives through those eager ops: the same sums and
+    concatenations, with plain tensors out. nccl ranks, one to a card,
+    need none of it."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+           "product": dist.ReduceOp.PRODUCT}
+
+    def group_of(group):
+        if isinstance(group, tuple):
+            mesh, dim = group
+            return mesh.get_group(dim)
+        if isinstance(group, DeviceMesh):
+            return group.get_group()
+        if isinstance(group, str):
+            from torch.distributed.distributed_c10d import _resolve_process_group
+            return _resolve_process_group(group)
+        return group
+
+    def all_reduce(self, reduceOp, group, tag=""):
+        g = group_of(group)
+        out = self.clone()
+        dist.all_reduce(out, op=ops[reduceOp.lower()], group=g)
+        return out / dist.get_world_size(g) if reduceOp.lower() == "avg" else out
+
+    def all_gather(self, gather_dim, group, tag=""):
+        g = group_of(group)
+        n = dist.get_world_size(g)
+        x = self.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=g)
+        return out if gather_dim == 0 else torch.cat(out.chunk(n), dim=gather_dim)
+
+    def reduce_scatter(self, reduceOp, scatter_dim, group, tag=""):
+        g = group_of(group)
+        n = dist.get_world_size(g)
+        x = self if scatter_dim == 0 else torch.cat(self.chunk(n, dim=scatter_dim))
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, op=ops[reduceOp.lower()], group=g)
+        # rank i's block along scatter_dim, in its own layout
+        return out / n if reduceOp.lower() == "avg" else out
+
+    for name, fn in (("all_reduce", all_reduce), ("all_gather_tensor", all_gather),
+                     ("all_gather_single", all_gather),
+                     ("reduce_scatter_tensor", reduce_scatter),
+                     ("reduce_scatter_single", reduce_scatter)):
+        if hasattr(funcol, name):
+            setattr(funcol, name, fn)
+
+
+def expert_rank() -> None:
+    """One of the EXPERT_RANKS ranks of "expert_ranks": gloo from the env
+    (serving.distributed, device="cpu"), the card as cuda:0, the mesh of
+    KT_MESH (expert 2 x tensor 2) on cuda. Mixtral's width at
+    EXPERT_LAYERS layers, bf16, random weights from a seed, laid out by
+    MOE_RULES: each rank holds 4 of the 8 experts and half of each
+    expert's F. Training: the first step's gradients (grads_fn) and one
+    default_optimizer step at EXPERT_B x EXPERT_S; exact A1/A2/A3; rank 0
+    then holds the loss to the plain step's on the card within LOSS_ABS
+    and prints the gradients' relative L2 against it. Serving: the
+    EXPERT_PROMPTS through GenerationEngine(mesh=) with a bf16 grid (8
+    slots, max_len 2048; B1 on the local slots and heads), EXPERT_NEW
+    tokens each, exact A1/B1 counts; rank 0 then runs the plain engine on
+    the same prompts: first tokens equal, the first decode step's logits
+    within LOGITS_REL_L2; the share of equal tokens is printed. Each
+    rank's peak memory is printed. The record is rank 0's last line."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        fail("expert rank: torch.cuda.is_available() is false")
+    import faulthandler
+    faulthandler.enable()          # a crash in a collective names its frame
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from kubetorch_tpu_torch.models import moe as moe_mod
+    from kubetorch_tpu_torch.ops import attention as ops_attn
+    from kubetorch_tpu_torch.ops import decode_attention as ops_dec
+    from kubetorch_tpu_torch.parallel import MOE_RULES
+    from kubetorch_tpu_torch.parallel.sharding import shard_pytree
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+    from kubetorch_tpu_torch.serving import distributed
+    from kubetorch_tpu_torch.train import (default_optimizer,
+                                           init_train_state, make_train_step)
+    from kubetorch_tpu_torch.train.optim import tree_leaves
+
+    cfg = moe_mod.MoeConfig.mixtral_8x7b(n_layers=EXPERT_LAYERS, max_seq_len=2048)
+    L = cfg.n_layers
+    fa, dec = ops_attn.flash_attention, ops_dec.decode_attention
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (EXPERT_B, EXPERT_S))).cuda()
+    batch = {"tokens": tokens, "targets": tokens.roll(-1, 1)}
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in EXPERT_PROMPTS]
+    distributed.init_process_group(device="cpu")
+    torch.cuda.set_device(0)
+    route_dtensor_collectives_through_c10d()
+    rank = dist.get_rank()
+    say = (lambda msg: print(msg, flush=True)) if rank == 0 else (lambda msg: None)
+
+    def laid_out():
+        params = moe_mod.moe_init(cfg, seed=0, device="cuda")
+        sharded = shard_pytree(params, MOE_RULES, mesh)
+        del params
+        torch.cuda.empty_cache()
+        return sharded
+
+    try:
+        mesh = distributed.mesh(device="cuda")
+        say(f"expert_ranks: KT_MESH {os.environ.get('KT_MESH')} -> {mesh} over "
+            f"{dist.get_backend()}, world {dist.get_world_size()}")
+        sharded = laid_out()
+        check_rules_layout(sharded, MOE_RULES, "MOE_RULES", mesh,
+                           f"expert_ranks rank {rank}")
+        bank = tuple(sharded["layers"]["experts"]["w_gate"].to_local().shape)
+        if bank != (L, cfg.n_experts // 2, cfg.dim, cfg.ffn_dim // 2):
+            fail(f"expert_ranks: rank {rank} holds a w_gate block of {bank}")
+        say(f"expert_ranks: each rank's w_gate block {bank}: "
+            f"{cfg.n_experts // 2} of {cfg.n_experts} experts, half of F")
+
+        # training: the first step's gradients, then one step
+        torch.cuda.reset_peak_memory_stats()
+        opt = default_optimizer(warmup_steps=2)
+        step = make_train_step(lambda p, t, y: moe_mod.moe_loss(p, t, y, cfg),
+                               opt, mesh=mesh, rules=MOE_RULES)
+        state = step.shard_state(init_train_state(sharded, opt))
+        fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        loss_g, grads = step.grads_fn(state.params, batch)
+        # every gradient whole on rank 0's host, leaf by leaf
+        host = []
+        for g in tree_leaves(grads):
+            whole = g.full_tensor()             # a collective: every rank
+            if rank == 0:
+                host.append(whole.cpu())
+            del whole
+        del grads
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        check_launches(f"expert_ranks rank {rank}: grads_fn and one step (A1, A2, A3)",
+                       counts, (4 * L, 2 * L, 2 * L))
+        loss = m["loss"].item()
+        # each rank's training peak, gathered on the host
+        peaks = torch.zeros(dist.get_world_size(), dtype=torch.float64)
+        peaks[rank] = torch.cuda.max_memory_allocated() / 1e9
+        dist.all_reduce(peaks)
+        train_peak = peaks.tolist()
+        say(f"expert_ranks: training peak_memory_gb by rank {train_peak}, "
+            f"sum {sum(train_peak)} of the one card")
+        del state, step, m, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        loss_g = float(loss_g.full_tensor())
+        train = dict(loss=loss, grads_fn_loss=loss_g, ms_per_step=step_ms,
+                     launches=counts, peak_memory_gb=train_peak)
+        if rank == 0:
+            params = moe_mod.moe_init(cfg, seed=0, device="cuda")
+            plain_loss, plain_grads = make_train_step(
+                lambda p, t, y: moe_mod.moe_loss(p, t, y, cfg), opt) \
+                .loss_and_grads(params, batch)
+            num = den = 0.0
+            worst = 0.0
+            for g, w in zip(host, tree_leaves(plain_grads)):
+                w = w.float()
+                d = (g.cuda().float() - w).norm() ** 2
+                num, den = num + float(d), den + float(w.norm() ** 2)
+                worst = max(worst, float(d.sqrt() / w.norm().clamp_min(1e-30)))
+            rel = math.sqrt(num / den)
+            plain_loss = float(plain_loss)
+            say(f"expert_ranks: train, {EXPERT_RANKS} ranks (expert 2 x tensor 2), "
+                f"batch {EXPERT_B}x{EXPERT_S}: loss {loss} (grads_fn {loss_g}) "
+                f"vs the plain step's {plain_loss} (tol {LOSS_ABS}); gradients' "
+                f"relative L2 {rel}, worst leaf {worst}; mesh step ms {step_ms}")
+            train.update(plain_loss=plain_loss, grad_rel_l2=rel, grad_worst_leaf=worst)
+            del params, plain_grads, host
+            gc.collect()
+            torch.cuda.empty_cache()
+            if not abs(loss - plain_loss) <= LOSS_ABS:
+                fail(f"expert_ranks: loss {loss} vs plain {plain_loss}")
+        dist.barrier()
+
+        # serving: the mesh engine with a bf16 grid, then the plain engine
+        sharded = laid_out()
+        runs = {}
+        for label, p, kw in (("mesh", sharded, dict(mesh=mesh)), ("plain", None, {})):
+            if label == "plain":
+                if rank != 0:
+                    continue
+                p = moe_mod.moe_init(cfg, seed=0, device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            eng = GenerationEngine(p, cfg, slots=8, max_len=2048,
+                                   prefill_buckets=(128, 256, 512, 1024),
+                                   device="cuda", **kw)
+            first_step = []
+            real = engine_mod._decode_step_impl
+
+            def record(*a, **k):
+                out = real(*a, **k)
+                if not first_step:
+                    first_step.append(out.float().clone())
+                return out
+
+            engine_mod._decode_step_impl = record
+            try:
+                fa.launches = dec.launches = 0
+                hs = [eng.submit(q, max_new_tokens=EXPERT_NEW) for q in prompts]
+                steps0, dt = eng.stats().decode_steps, []
+                while True:
+                    before = eng.stats().admitted_total
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    left = eng.step()
+                    torch.cuda.synchronize()
+                    if eng.stats().admitted_total == before:
+                        dt.append(time.perf_counter() - t)
+                    if not left:
+                        break
+                got = (fa.launches, dec.launches)
+            finally:
+                engine_mod._decode_step_impl = real
+            steps = eng.stats().decode_steps - steps0
+            outs = [h.result(timeout=0) for h in hs]
+            if any(len(o) != EXPERT_NEW or not all(0 <= x < cfg.vocab_size for x in o)
+                   for o in outs):
+                fail(f"expert_ranks {label}: outputs {outs}")
+            check_launches(f"expert_ranks rank {rank} {label} engine (A1, B1)", got,
+                           (L * len(prompts), L * steps))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            print(f"expert_ranks: rank {rank} {label} engine peak_memory_gb={peak}",
+                  flush=True)
+            runs[label] = dict(tokens=outs, launches=got, steps=steps,
+                               first_step=first_step[0], peak_memory_gb=peak,
+                               ms_per_decode_step=sum(dt) / len(dt) * 1e3)
+            del eng, p
+            gc.collect()
+            torch.cuda.empty_cache()
+        serve = dict(launches=dict(flash_fwd=runs["mesh"]["launches"][0],
+                                   decode_attention=runs["mesh"]["launches"][1]))
+        if rank == 0:
+            a, b = runs["mesh"], runs["plain"]
+            rel = float((a["first_step"] - b["first_step"]).norm()
+                        / b["first_step"].norm())
+            firsts = [x[0] for x in a["tokens"]] == [x[0] for x in b["tokens"]]
+            same = sum(x == y for u, v in zip(a["tokens"], b["tokens"])
+                       for x, y in zip(u, v)) / (len(prompts) * EXPERT_NEW)
+            say(f"expert_ranks: serve, {EXPERT_RANKS} ranks, A1/B1 launches "
+                f"{a['launches']} over {a['steps']} decode steps; first tokens "
+                f"equal to the plain engine's {firsts}; first decode step's "
+                f"logits rel_l2 {rel} (tol {LOGITS_REL_L2}); equal tokens {same}; "
+                f"decode ms/step mesh {a['ms_per_decode_step']} plain "
+                f"{b['ms_per_decode_step']}")
+            if not (firsts and rel <= LOGITS_REL_L2):
+                fail(f"expert_ranks: first tokens equal {firsts}, first decode "
+                     f"step rel_l2 {rel}")
+            serve.update(logits_rel_l2=rel, equal_tokens=same,
+                         ms_per_decode_step={k: r["ms_per_decode_step"]
+                                             for k, r in runs.items()})
+        serve["peak_memory_gb"] = runs["mesh"]["peak_memory_gb"]
+    finally:
+        distributed.destroy()
+    if rank == 0:
+        print(json.dumps(dict(ranks=EXPERT_RANKS, layers=L, train=train,
+                              serve=serve, launches=dict(train=train["launches"],
+                                                         serve=serve["launches"]))),
+              flush=True)
 
 
 def main() -> None:
@@ -5542,6 +6126,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     mesh_serve_n, mesh_serve = drive_mesh_serve(card)
     ctx_n = mesh_serve["context"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_mesh = drive_moe_mesh(card)
+    mm_train, mm_serve = (moe_mesh["train"]["launches"]["mesh"],
+                          moe_mesh["serve"]["launches"]["mesh"])
+    ep_n = moe_mesh["expert_ranks"]["launches"]
     trains = {"lora_train": lora_train, "moe_train": moe_train}
 
     def train_launches(i):
@@ -5570,6 +6160,10 @@ def main() -> None:
              mesh_serve=dict(launches=mesh_serve_n[0]),
              mesh_serve_context=dict(launches={k: n["flash_fwd"]
                                                for k, n in ctx_n.items()}),
+             moe_mesh=dict(launches=dict(train=mm_train[0],
+                                         serve=mm_serve["flash_fwd"])),
+             expert_ranks=dict(launches=dict(train=ep_n["train"][0],
+                                             serve=ep_n["serve"]["flash_fwd"])),
              serving=dict(launches=flash_n, **flash),
              serving_quant=dict(launches=quant_n["flash_fwd"]),
              engine_features=dict(launches=feat_n["flash_fwd"]),
@@ -5596,6 +6190,7 @@ def main() -> None:
              spec_self=dict(launches=spec_n["spec_self"]["decode_attention"]),
              spec_q4=dict(launches=qspec_n["decode_attention"]),
              mesh_serve=dict(launches=mesh_serve_n[1]),
+             expert_ranks=dict(launches=ep_n["serve"]["decode_attention"]),
              draft_hd64=dec_draft),
         dict(name="decode_attention_partial", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
@@ -5622,7 +6217,9 @@ def main() -> None:
              vit=dict(launches=vit["launches"][1],
                       per_train_step=vit["per_train_step"][1],
                       **vit_k["dq"]),
-             fabric=dict(launches=fabric_n[1]), mesh=dict(launches=mesh_n[1])),
+             fabric=dict(launches=fabric_n[1]), mesh=dict(launches=mesh_n[1]),
+             moe_mesh=dict(launches=mm_train[1]),
+             expert_ranks=dict(launches=ep_n["train"][1])),
         dict(name="flash_bwd_dkv", route="cuda",
              source="kubetorch_tpu_torch/csrc/flash_bwd.cu",
              replaces="kubetorch_tpu/ops/attention.py:180",
@@ -5631,7 +6228,9 @@ def main() -> None:
              vit=dict(launches=vit["launches"][2],
                       per_train_step=vit["per_train_step"][2],
                       **vit_k["dkv"]),
-             fabric=dict(launches=fabric_n[2]), mesh=dict(launches=mesh_n[2])),
+             fabric=dict(launches=fabric_n[2]), mesh=dict(launches=mesh_n[2]),
+             moe_mesh=dict(launches=mm_train[2]),
+             expert_ranks=dict(launches=ep_n["train"][2])),
         dict(name="decode_attention_quant", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
              replaces="kubetorch_tpu/ops/decode_attention.py:46",
@@ -5642,7 +6241,8 @@ def main() -> None:
              lora_q4=dict(launches=qlora_n["decode_attention_quant"]),
              moe=dict(launches=moe_n["decode_attention_quant"]),
              moe_gather=dict(launches=moe_gather_n["decode_attention_quant"]),
-             spec_q4=dict(launches=qspec_n["decode_attention_quant"])),
+             spec_q4=dict(launches=qspec_n["decode_attention_quant"]),
+             moe_mesh=dict(launches=mm_serve["decode_attention_quant"])),
         dict(name="q4_matmul", route="cuda",
              source="kubetorch_tpu_torch/csrc/quant_matmul.cu",
              replaces="kubetorch_tpu/ops/quant_matmul.py:31",
@@ -5653,6 +6253,7 @@ def main() -> None:
              moe=dict(launches=moe_n["q4_matmul"]),
              moe_gather=dict(launches=moe_gather_n["q4_matmul"]),
              spec_q4=dict(launches=qspec_n["q4_matmul"]),
+             moe_mesh=dict(launches=mm_serve["q4_matmul"]),
              verify_window=q4_window),
     ]
     print(f"spec: {json.dumps(spec)}", flush=True)
@@ -5662,6 +6263,7 @@ def main() -> None:
     print(f"vit: {json.dumps(vit)} card={card}", flush=True)
     print(f"mesh: {json.dumps(mesh)} card={card}", flush=True)
     print(f"mesh_serve: {json.dumps(mesh_serve)} card={card}", flush=True)
+    print(f"moe_mesh: {json.dumps(moe_mesh)} card={card}", flush=True)
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -5671,7 +6273,11 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == [FABRIC_RANK_FLAG]:
+    if sys.argv[1:] == [MOE_MESH_RANK_FLAG]:
+        moe_mesh_rank()
+    elif sys.argv[1:] == [EXPERT_RANK_FLAG]:
+        expert_rank()
+    elif sys.argv[1:] == [FABRIC_RANK_FLAG]:
         fabric_rank()
     elif sys.argv[1:] == [MESH_RANK_FLAG]:
         mesh_rank()

@@ -39,9 +39,21 @@ checkpoint when ``cfg.remat`` is on, with the port's ``"dots"`` policy
 products are saved. The values and gradients are the same; the port keeps
 three (B, C + 1, F or D) products per expert and layer more.
 
-Not ported here: the shard_map axes (``ep_axis``/``tp_axis``) of the
-parallelism queue, which raise, and ``context_chunked_routing`` (pipeline
-stages), which ``config_from_dict`` ignores.
+On a device mesh (DTensor params laid out by ``parallel.MOE_RULES``, the
+batch by ``ACT_RULES``) the attention half is Llama's (``common.linear``,
+attention per local batch and head shard) and the FFN runs the plan of
+JAX's shard_map form on each rank's shards (:func:`_dispatch_on_mesh`):
+``expert`` is no batch axis, so every rank of it holds the same tokens,
+routes all of them, keeps the pairs of its own experts and runs only
+those; one reduction over the axes that split the bank (``expert``, and
+``tensor`` over F) rebuilds the output, with no all-to-all. The FFN's
+input is gathered over ``context`` first, so capacity counts the whole
+sequence as in JAX, and the aux term's means are reduced over the batch
+before they multiply. ``moe_ffn(ep_axis=, tp_axis=)`` is the same plan
+inside ``parallel.mesh.shard_map_fn`` (pipeline stages).
+
+Not ported here: ``context_chunked_routing`` (pipeline stages), which
+``config_from_dict`` ignores.
 """
 
 from __future__ import annotations
@@ -54,9 +66,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .common import checkpointed
+from ..parallel.mesh import is_dtensor
+from .common import checkpointed, constrain_hidden
 from .common import config_from_dict as _config_from_dict
-from .common import resolve_device, resolve_remat_policy
+from .common import linear, replicate_like, resolve_device, resolve_remat_policy
 from .llama import LlamaConfig, apply_rope, attention, rmsnorm, rope_freqs
 from .quant import Q4KEY, QKEY, dequant, is_quantized
 
@@ -184,20 +197,23 @@ def _expert(leaf: Any, e: int, dtype) -> torch.Tensor:
     return leaf[e]
 
 
-def _dispatch(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any],
-              token_mask=None, keep_capacity=None, no_drop: bool = False):
-    """The capacity-buffer MoE body: (output (B, S, D), probs, kept pairs
-    (B, S, K) bool)."""
-    b, s, d = x.shape
+def _bank_experts(leaf: Any) -> int:
+    """How many experts a bank leaf holds: its leading dim, read through
+    any array of a quantized leaf (each keeps the expert dim)."""
+    return (next(iter(leaf.values())) if isinstance(leaf, dict) else leaf).shape[0]
+
+
+def _positions(cfg: MoeConfig, gate_idx: torch.Tensor, s: int, token_mask=None,
+               keep_capacity=None, no_drop: bool = False):
+    """Each (token, k) pair's row in its expert's capacity buffer: the
+    pairs before it in (S·K) order that chose the same expert, padding
+    excluded. Returns (capacity, pos (B, S, K), kept (B, S, K) bool)."""
+    b = gate_idx.shape[0]
     E, K = cfg.n_experts, cfg.experts_per_token
     if no_drop:
         capacity, keep_capacity = s, None
     else:
         capacity = max(1, int(cfg.capacity_factor * s * K / E))
-    probs, gate_vals, gate_idx = _route(cfg, x, lw)
-
-    # position of each (token, k) inside its expert's buffer: the pairs
-    # before it in (S·K) order that chose the same expert, padding excluded
     onehot = F.one_hot(gate_idx, E)                              # (B,S,K,E)
     if token_mask is not None:
         onehot = onehot * token_mask[:, :, None, None].to(onehot.dtype)
@@ -209,29 +225,293 @@ def _dispatch(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any],
     kept = pos < limit
     if token_mask is not None:
         kept = kept & token_mask[:, :, None]
+    return capacity, pos, kept
 
-    # every pair that is not kept lands in row ``capacity``, read by no one
-    slot = torch.where(kept, pos, torch.full_like(pos, capacity))
+
+def _run_experts(x: torch.Tensor, gate_vals: torch.Tensor,
+                 gate_idx: torch.Tensor, pos: torch.Tensor, kept: torch.Tensor,
+                 capacity: int, experts: Dict[str, Any],
+                 start: int = 0) -> torch.Tensor:
+    """The buffer, the SwiGLU and the combine of experts ``[start, start +
+    n)``, n the bank's leading dim (all E off a mesh; a rank's own range
+    on one): the kept pairs that chose one of them are copied into its
+    buffer, the rest weigh 0 in the combine. (B, S, D) in x's type."""
+    b, s, d = x.shape
+    K = gate_idx.shape[-1]
+    n = _bank_experts(experts["w_gate"])
+    local = gate_idx - start
+    mine = kept & (local >= 0) & (local < n)
+    local = local.clamp(0, n - 1)
+    # every pair that is not this call's lands in row ``capacity``, read
+    # by no one
+    slot = torch.where(mine, pos, torch.full_like(pos, capacity))
     bi = torch.arange(b, device=x.device)[:, None, None].expand(b, s, K)
     si = torch.arange(s, device=x.device)[None, :, None].expand(b, s, K)
-    buf = x.new_zeros((E, b, capacity + 1, d))
-    buf[gate_idx, bi, slot] = x[bi, si]
+    buf = x.new_zeros((n, b, capacity + 1, d))
+    buf[local, bi, slot] = x[bi, si]
 
-    experts = lw["experts"]
     out_buf = torch.empty_like(buf)
-    for e in range(E):
+    for e in range(n):
         xe = buf[e].reshape(-1, d)
         h = (F.silu(xe @ _expert(experts["w_gate"], e, x.dtype))
              * (xe @ _expert(experts["w_up"], e, x.dtype)))
         out_buf[e] = (h @ _expert(experts["w_down"], e, x.dtype)).reshape(
             b, capacity + 1, d)
 
-    # combine: each token's kept pairs, weighted by their gates (rounded to
-    # the activation type, as the JAX combine tensor is), summed in fp32
-    w = gate_vals.to(x.dtype).float() * kept
-    picked = out_buf[gate_idx, bi, slot].float()                 # (B,S,K,D)
-    out = (w[..., None] * picked).sum(2).to(x.dtype)
+    # combine: each token's pairs, weighted by their gates (rounded to the
+    # activation type, as the JAX combine tensor is), summed in fp32
+    w = gate_vals.to(x.dtype).float() * mine
+    picked = out_buf[local, bi, slot].float()                    # (B,S,K,D)
+    return (w[..., None] * picked).sum(2).to(x.dtype)
+
+
+def _dispatch(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any],
+              token_mask=None, keep_capacity=None, no_drop: bool = False):
+    """The capacity-buffer MoE body: (output (B, S, D), probs, kept pairs
+    (B, S, K) bool). DTensors run it on each rank's shards
+    (:func:`_dispatch_on_mesh`)."""
+    if is_dtensor(x):
+        return _dispatch_on_mesh(cfg, x, lw, token_mask, keep_capacity, no_drop)
+    probs, gate_vals, gate_idx = _route(cfg, x, lw)
+    capacity, pos, kept = _positions(cfg, gate_idx, x.shape[1], token_mask,
+                                     keep_capacity, no_drop)
+    out = _run_experts(x, gate_vals, gate_idx, pos, kept, capacity,
+                       lw["experts"])
     return out, probs, kept
+
+
+# ---------------------------------------------------------------------------
+# on a device mesh
+# ---------------------------------------------------------------------------
+
+# the F dim of each bank leaf: (E, D, F) for w_gate/w_up, (E, F, D) for w_down
+_F_DIM = {"w_gate": 2, "w_up": 2, "w_down": 1}
+
+
+def _bank_leaves(experts: Dict[str, Any]):
+    """The bank's tensors in a fixed order, as (name, key, tensor); key is
+    None for a plain leaf and the dict key of a quantized one."""
+    out = []
+    for name in ("w_gate", "w_up", "w_down"):
+        leaf = experts[name]
+        if isinstance(leaf, dict):
+            out += [(name, k, v) for k, v in sorted(leaf.items())]
+        else:
+            out.append((name, None, leaf))
+    return out
+
+
+def _rebuild_bank(leaves, tensors) -> Dict[str, Any]:
+    bank: Dict[str, Any] = {}
+    for (name, key, _), t in zip(leaves, tensors):
+        if key is None:
+            bank[name] = t
+        else:
+            bank.setdefault(name, {})[key] = t
+    return bank
+
+
+class _MeshPlan:
+    """How the expert FFN runs on each rank's shards, per mesh dim, from the
+    placements of the activations (x: ``Shard(0)``, a batch axis, or
+    ``Replicate()``) and of the bank's tensors:
+
+    - x sharded on the batch: the bank is whole on that dim (gathered, as
+      ``common.linear`` gathers fsdp), the output keeps x's shard, and the
+      bank's gradient comes back as a pending sum;
+    - the bank sharded on E (``expert``): each rank runs its own range of
+      experts over every token of the dim (``expert`` is no batch axis, so
+      all its ranks hold the same tokens), and the output is a pending sum;
+    - the bank sharded on F (``tensor``): each rank runs its slice of every
+      expert's F, and the output is a pending sum;
+    - the bank sharded on D (fsdp over a batch too small to shard): it is
+      gathered;
+    - otherwise everything is whole.
+
+    The expert range is read from the bank's placements, never from the
+    mesh: a bank replicated over a live ``expert`` axis (an int8 bank,
+    which the rules replicate) runs every expert on every rank, and its
+    output is whole there."""
+
+    def __init__(self, x, leaves):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        mesh = self.mesh = x.device_mesh
+        self.x, self.x_grad, self.route_grad, self.out = [], [], [], []
+        self.bank = [[] for _ in leaves]
+        self.bank_grad = [[] for _ in leaves]
+        e_dims = []
+        for i, px in enumerate(x.placements):
+            batch = px.is_shard(0)
+            kinds = set()
+            for j, (name, _, t) in enumerate(leaves):
+                p = t.placements[i]
+                if batch or not p.is_shard():
+                    kind, keep = None, False
+                elif p.dim == 0:
+                    kind, keep = "E", True
+                elif p.dim == _F_DIM[name]:
+                    kind, keep = "F", True
+                else:
+                    kind, keep = None, False
+                kinds.add(kind)
+                self.bank[j].append(p if keep else Replicate())
+                self.bank_grad[j].append(p if keep else
+                                         (Partial() if batch else Replicate()))
+            if len(kinds) > 1:
+                raise ValueError(
+                    f"the expert bank is sharded unevenly over mesh axis "
+                    f"{mesh.mesh_dim_names[i]!r}: "
+                    f"{[t.placements[i] for _, _, t in leaves]}")
+            kind = kinds.pop()
+            if batch:
+                pl, grad, out = Shard(0), Shard(0), Shard(0)
+            elif kind is not None:
+                pl, grad, out = Replicate(), Partial(), Partial()
+                if kind == "E":
+                    e_dims.append(i)
+            else:
+                pl, grad, out = Replicate(), Replicate(), Replicate()
+            self.x.append(pl)
+            self.x_grad.append(grad)
+            self.route_grad.append(Partial() if batch else Replicate())
+            self.out.append(out)
+        # this rank's block of E, in mesh-dim order (as DTensor cuts a dim
+        # that several mesh dims shard)
+        coord = mesh.get_coordinate()
+        block, ways = 0, 1
+        for i in e_dims:
+            block = block * mesh.size(i) + coord[i]
+            ways *= mesh.size(i)
+        self.e_local = _bank_experts(leaves[0][2]) // ways
+        self.start = block * self.e_local
+
+
+def _whole_rows(x: torch.Tensor):
+    """x on a mesh with its pending sums reduced, and every dim but the
+    batch gathered (the sequence, over ``context``: capacity counts the
+    whole sequence, as in JAX). Returns (that x, x's own placements with
+    the sums reduced)."""
+    from torch.distributed.tensor import Replicate
+
+    own = [Replicate() if p.is_partial() else p for p in x.placements]
+    whole = [p if p.is_shard(0) else Replicate() for p in own]
+    return x.redistribute(x.device_mesh, whole), own
+
+
+def _dispatch_on_mesh(cfg: MoeConfig, x, lw, token_mask, keep_capacity,
+                      no_drop):
+    """:func:`_dispatch` over DTensors: the plan of JAX's shard_map form
+    (``kubetorch_tpu/models/moe.py:212-239``) through ``local_map``. Each
+    rank routes all of its tokens (the router's softmax and top-k are
+    cheap and the same on every rank of a non-batch axis), places every
+    pair in the capacity buffers as off a mesh, runs only the experts (and
+    the slice of F) its bank shard holds, and one reduction over the axes
+    that split the bank rebuilds the output, which then takes x's layout
+    again. Two ``local_map`` calls, so each gradient comes back as what it
+    is: the router's is whole on every rank of a non-batch axis, the
+    gates' and x's through the experts are pending sums there."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    x, own = _whole_rows(x)
+    mesh = x.device_mesh
+    leaves = _bank_leaves(lw["experts"])
+    plan = _MeshPlan(x, leaves)
+    masked = token_mask is not None
+    if masked:
+        if not isinstance(token_mask, DTensor):
+            token_mask = replicate_like(token_mask, x)
+        token_mask = token_mask.redistribute(mesh, plan.x)
+    extra = (token_mask,) if masked else ()
+    extra_pl = (plan.x,) if masked else ()
+
+    def route(x, router):
+        return _route(cfg, x, {"router": router})
+
+    probs, gate_vals, gate_idx = local_map(
+        route, out_placements=(plan.x, plan.x, plan.x),
+        in_placements=(plan.x, [Replicate()] * mesh.ndim),
+        in_grad_placements=(plan.x, plan.route_grad), device_mesh=mesh,
+        redistribute_inputs=True)(x, lw["router"])
+
+    def experts(x, gate_vals, gate_idx, *rest):
+        mask = rest[0] if masked else None
+        bank = _rebuild_bank(leaves, rest[len(extra):])
+        capacity, pos, kept = _positions(cfg, gate_idx, x.shape[1], mask,
+                                         keep_capacity, no_drop)
+        out = _run_experts(x, gate_vals, gate_idx, pos, kept, capacity, bank,
+                           plan.start)
+        return out, kept
+
+    tensors = [t for _, _, t in leaves]
+    out, kept = local_map(
+        experts, out_placements=(plan.out, plan.x),
+        in_placements=(plan.x, plan.x, plan.x, *extra_pl, *plan.bank),
+        in_grad_placements=(plan.x_grad, plan.x_grad, plan.x, *extra_pl,
+                            *plan.bank_grad),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x, gate_vals, gate_idx, *extra, *tensors)
+    # the reduction over the axes that split the bank, then x's own layout
+    return out.redistribute(mesh, own), probs, kept
+
+
+def _aux_sums(probs: torch.Tensor, token_mask=None):
+    """The Switch-style aux loss's statistics over (B, S): per expert the
+    count of top-1 assignments and the sum of probs, and the count of
+    tokens, each with padding left out."""
+    top1 = F.one_hot(probs.argmax(-1), probs.shape[-1]).float()
+    if token_mask is None:
+        count = torch.full((), probs.shape[0] * probs.shape[1],
+                           dtype=torch.float32, device=probs.device)
+        return top1.sum(dim=(0, 1)), probs.sum(dim=(0, 1)), count
+    m = token_mask.float()
+    return (torch.einsum("bse,bs->e", top1, m),
+            torch.einsum("bse,bs->e", probs, m), m.sum() + 1e-9)
+
+
+def _aux(cfg: MoeConfig, probs: torch.Tensor, token_mask=None) -> torch.Tensor:
+    """E · Σ_e frac_e · mean_prob_e on top-1 assignments. Both means are
+    over the whole (B, S) before they multiply (a product of per-shard
+    means is another number): on a mesh each rank sums its shard and the
+    sums are reduced first."""
+    if is_dtensor(probs):
+        from torch.distributed.tensor import Partial, Replicate
+        from torch.distributed.tensor.experimental import local_map
+
+        mesh = probs.device_mesh
+        pl = list(probs.placements)
+        args, in_pl = [probs], [pl]
+        if token_mask is not None:
+            if not is_dtensor(token_mask):
+                token_mask = replicate_like(token_mask, probs)
+            args.append(token_mask.redistribute(mesh, pl))
+            in_pl.append(pl)
+        part = [Partial() if p.is_shard(0) else Replicate() for p in pl]
+        whole = [Replicate()] * mesh.ndim
+        sums = local_map(_aux_sums, out_placements=(part, part, part),
+                         in_placements=tuple(in_pl), device_mesh=mesh)(*args)
+        top1, prob, count = (t.redistribute(mesh, whole) for t in sums)
+    else:
+        top1, prob, count = _aux_sums(probs, token_mask)
+    return cfg.n_experts * ((top1 / count) * (prob / count)).sum()
+
+
+class _PSum(torch.autograd.Function):
+    """``lax.psum`` inside a shard_map body: the sum over a process group;
+    its transpose hands the (replicated) cotangent back unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def moe_ffn(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any],
@@ -246,23 +526,41 @@ def moe_ffn(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any],
     capacity while the buffer stays sized by the padded S, so a
     right-padded prompt routes its real tokens as the unpadded one would.
     ``no_drop`` sizes the buffer to S slots per expert, so no token can
-    overflow (overrides ``keep_capacity``)."""
+    overflow (overrides ``keep_capacity``).
+
+    DTensors (a mesh laid out by ``MOE_RULES``) run on each rank's shards
+    (:func:`_dispatch_on_mesh`). Inside ``parallel.mesh.shard_map_fn``
+    (pipeline stages) pass ``ep_axis``/``tp_axis``, as in JAX: x is the
+    local block, the same on every rank of those axes; each rank routes
+    all its tokens, runs the experts of its local bank (the range from
+    ``axis_index(ep_axis)`` and the local leaf's leading dim, an int8 dict
+    leaf's too) and one sum over the two axes rebuilds the output; the aux
+    term is the local block's."""
     if ep_axis is not None or tp_axis is not None:
-        raise NotImplementedError(
-            "expert/tensor-parallel MoE (ep_axis, tp_axis) is not ported")
-    E = cfg.n_experts
+        return _moe_ffn_shard_map(cfg, x, lw, ep_axis, tp_axis, token_mask,
+                                  keep_capacity, no_drop)
     out, probs, _ = _dispatch(cfg, x, lw, token_mask, keep_capacity, no_drop)
-    # aux load-balancing loss (Switch-style) on top-1 assignments
-    top1 = F.one_hot(probs.argmax(-1), E).float()
-    if token_mask is None:
-        frac = top1.mean(dim=(0, 1))
-        aux = E * (frac * probs.mean(dim=(0, 1))).sum()
-    else:
-        m = token_mask.float()
-        denom = m.sum() + 1e-9
-        frac = torch.einsum("bse,bs->e", top1, m) / denom
-        aux = E * (frac * (torch.einsum("bse,bs->e", probs, m) / denom)).sum()
-    return out, aux
+    return out, _aux(cfg, probs, token_mask)
+
+
+def _moe_ffn_shard_map(cfg, x, lw, ep_axis, tp_axis, token_mask,
+                       keep_capacity, no_drop):
+    from ..parallel.mesh import axis_group, axis_index
+
+    probs, gate_vals, gate_idx = _route(cfg, x, lw)
+    capacity, pos, kept = _positions(cfg, gate_idx, x.shape[1], token_mask,
+                                     keep_capacity, no_drop)
+    experts = lw["experts"]
+    start = 0
+    if ep_axis is not None:
+        start = axis_index(ep_axis) * _bank_experts(experts["w_gate"])
+    out = _run_experts(x, gate_vals, gate_idx, pos, kept, capacity, experts,
+                       start)
+    for axis in (ep_axis, tp_axis):
+        group = None if axis is None else axis_group(axis)
+        if group is not None:
+            out = _PSum.apply(out, group)
+    return out, _aux(cfg, probs, token_mask)
 
 
 def moe_prefill_keep_capacity(cfg, true_len: int):
@@ -282,6 +580,8 @@ def moe_ffn_decode(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any]):
     """Decode-specialized top-k MoE: gather the K chosen experts' weights
     per token and run only those FFNs. Exact only at T == 1, where no
     pair can overflow (callers gate on it). x: (B, T, D) → (B, T, D)."""
+    if is_dtensor(x):
+        return _decode_on_mesh(cfg, x, lw)
     _, gate_vals, gate_idx = _route(cfg, x, lw)                  # (B, T, K)
 
     def gather_expert(leaf):
@@ -307,17 +607,47 @@ def moe_ffn_decode(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any]):
     return (gate_vals.to(x.dtype)[..., None, :] @ out)[..., 0, :]
 
 
+def _decode_on_mesh(cfg: MoeConfig, x, lw):
+    """:func:`moe_ffn_decode` over DTensors, on each rank's shards (the
+    serving engine's decode; no gradient). The plan is the dispatch's
+    (:class:`_MeshPlan`) with every expert on every rank: the engine takes
+    the gather only where no live axis splits the bank's E."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    x, own = _whole_rows(x)
+    mesh = x.device_mesh
+    leaves = _bank_leaves(lw["experts"])
+    plan = _MeshPlan(x, leaves)
+    if plan.e_local != cfg.n_experts:
+        raise ValueError("the decode gather needs every expert on every "
+                         "rank; an expert-sharded bank takes the dispatch")
+
+    def body(x, router, *bank):
+        return moe_ffn_decode(cfg, x, {"router": router,
+                                       "experts": _rebuild_bank(leaves, bank)})
+
+    out = local_map(body, out_placements=plan.out,
+                    in_placements=(plan.x, [Replicate()] * mesh.ndim, *plan.bank),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        x, lw["router"], *(t for _, _, t in leaves))
+    return out.redistribute(mesh, own)
+
+
 def _moe_layer(cfg: MoeConfig, x: torch.Tensor, lw: Dict[str, Any],
                freqs: torch.Tensor):
-    """One MoE decoder layer over (B, S, D): (new x, aux)."""
+    """One MoE decoder layer over (B, S, D): (new x, aux). On a mesh the
+    projections run through ``common.linear`` and attention on each rank's
+    batch and head shard, as Llama's layer."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h = rmsnorm(x, lw["attn_norm"], cfg.norm_eps)
-    q = (h @ lw["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ lw["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ lw["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = linear(h, lw["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = linear(h, lw["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(h, lw["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     q, k = apply_rope(q, freqs), apply_rope(k, freqs)
-    x = x + attention(q, k, v, cfg._llama_view()).reshape(b, s, -1) @ lw["wo"]
+    x = x + linear(attention(q, k, v, cfg._llama_view()).reshape(b, s, -1),
+                   lw["wo"])
     h = rmsnorm(x, lw["ffn_norm"], cfg.norm_eps)
     ffn_out, aux = moe_ffn(cfg, h, lw)
     return x + ffn_out, aux
@@ -345,19 +675,24 @@ def moe_forward(params: Dict[str, Any], tokens: torch.Tensor,
     Under grad mode each layer runs inside a checkpoint (``"dots"``) when
     ``cfg.remat`` is on. Each stacked leaf is unbound once before the
     loop, as ``llama_hidden`` does: indexing it per layer would give each
-    layer's backward a zero-filled gradient of the whole leaf."""
-    x = params["embed"][tokens].to(cfg.dtype)
-    freqs = rope_freqs(cfg, tokens.shape[1], device=tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    layer's backward a zero-filled gradient of the whole leaf. On a mesh
+    (DTensor params and tokens) the hidden state is pinned to the batch's
+    layout after the embedding and after each layer
+    (``common.constrain_hidden``)."""
+    x = constrain_hidden(params["embed"][tokens].to(cfg.dtype))
+    freqs = replicate_like(rope_freqs(cfg, tokens.shape[1], device=tokens.device), x)
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=tokens.device), x)
     remat = cfg.remat and torch.is_grad_enabled()
     layer = checkpointed(lambda x, lw: _moe_layer(cfg, x, lw, freqs),
                          resolve_remat_policy("dots" if remat else None))
     per_layer = _unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
         x, a = layer(x, _layer_of(per_layer, i))
+        x = constrain_hidden(x)
         aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"].to(cfg.dtype)).float()
+    logits = linear(x, params["lm_head"].to(cfg.dtype)).float()
     return logits, aux / cfg.n_layers
 
 

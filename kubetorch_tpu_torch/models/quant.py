@@ -61,7 +61,11 @@ def is_quantized(leaf: Any) -> bool:
 
 
 def dequant(leaf: Any, dtype=torch.bfloat16) -> Any:
-    """Dequantize an int8 or int4 leaf; identity for ordinary tensors."""
+    """Dequantize an int8 or int4 leaf; identity for ordinary tensors. A
+    leaf of DTensors (on a mesh) is dequantized on each rank's shard and
+    comes back as a DTensor of the values' placements."""
+    if is_quantized(leaf) and is_dtensor(next(iter(leaf.values()))):
+        return _on_local_leaf(lambda local: dequant(local, dtype), leaf)
     if isinstance(leaf, dict) and Q4KEY in leaf:
         return _dequant_int4(leaf, dtype)
     if is_quantized(leaf):
@@ -262,23 +266,69 @@ def quantize_params_int4(params: Dict[str, Any],
     return _walk(params, visit)
 
 
+def _on_local_leaf(fn, leaf: Dict[str, Any]) -> torch.Tensor:
+    """``fn`` of a quantized leaf of DTensors, run on the local blocks. The
+    rules replicate every quantized leaf (no rule matches a path ending in
+    ``__kt_q8__``, ``__kt_q4__`` or ``scale``, as in JAX), so the local
+    blocks are the whole leaf; the result takes the values' placements."""
+    from torch.distributed.tensor import DTensor
+
+    values = leaf.get(QKEY, leaf.get(Q4KEY))
+    out = fn({k: v.to_local() for k, v in leaf.items()})
+    return DTensor.from_local(out, values.device_mesh, values.placements,
+                              run_check=False)
+
+
+def _q4_dot(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """fp32 ``x @ W`` for a packed-int4 leaf: the kernel where
+    ``q4_supported`` holds, the dequant fallback otherwise."""
+    p, s = w[Q4KEY], w["scale"]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if _q4.q4_supported(x2.shape, p.shape, s.shape):
+        y = _q4.q4_matmul(x2, p, s)
+    else:
+        y = x2.float() @ _dequant_int4(w, torch.float32)
+    return y.reshape(*lead, p.shape[-1])
+
+
+def _q4_dot_on_mesh(x, w: Dict[str, Any]) -> torch.Tensor:
+    """:func:`_q4_dot` of DTensor activations against a quantized leaf:
+    the packed matrix is whole on every rank (the rules replicate it; a
+    leaf laid out otherwise is gathered), and B3 or the fallback runs on
+    x's local rows. A pending sum in x is reduced and a split of its last
+    dim gathered first; the output keeps x's leading shards."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = x.device_mesh, x.ndim - 1
+    pl = [Replicate() if p.is_partial() or p.is_shard(last) else p
+          for p in x.placements]
+    whole = [Replicate()] * mesh.ndim
+    keys = sorted(w)
+
+    def body(x, *leaf):
+        return _q4_dot(x, dict(zip(keys, leaf)))
+
+    return local_map(body, out_placements=pl,
+                     in_placements=(pl, *([whole] * len(keys))),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, *(w[k] for k in keys))
+
+
 def wdot(x: torch.Tensor, w: Any, dtype=None) -> torch.Tensor:
     """``x @ W`` for a plain weight tensor or a packed-int4 leaf. Packed
     int4 goes through ``ops.quant_matmul.q4_matmul`` (the kernel on CUDA)
     when ``q4_supported`` holds, else through the fp32 dequant fallback,
     ``x.float() @ W_fp32`` (the JAX package's ``x @ W_f32`` promotes x the
     same way). ``x`` may carry any leading dims; the result is in
-    ``dtype`` (default ``x.dtype``)."""
+    ``dtype`` (default ``x.dtype``). DTensor activations run on each
+    rank's rows (:func:`_q4_dot_on_mesh`, ``common.linear``)."""
     out_dtype = dtype or x.dtype
     if isinstance(w, dict) and Q4KEY in w:
-        p, s = w[Q4KEY], w["scale"]
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        if _q4.q4_supported(x2.shape, p.shape, s.shape):
-            y = _q4.q4_matmul(x2, p, s)
-        else:
-            y = x2.float() @ _dequant_int4(w, torch.float32)
-        return y.reshape(*lead, p.shape[-1]).to(out_dtype)
+        if is_dtensor(x):
+            return _q4_dot_on_mesh(x, w).to(out_dtype)
+        return _q4_dot(x, w).to(out_dtype)
     if is_dtensor(x):
         return linear(x, w)
     return x @ w

@@ -95,8 +95,15 @@
   prefill on a context mesh takes ring attention (``models.generate``).
   Each rank runs an engine, every rank submits the same requests in the
   same order, and the ranks agree on each step over a gloo group
-  (``_StepAgreement``). Quantized weight trees, MoE trees and LoRA banks
-  raise on a mesh (ROADMAP Queue A item 10).
+  (``_StepAgreement``). An MoE tree (``MOE_RULES``) runs its experts on
+  each rank's shards of the bank (``models.moe``: an expert-sharded bank
+  runs each rank's own experts and one reduction rebuilds the FFN's
+  output); the grid is replicated over ``expert``. A quantized tree
+  (int8, int4, or Mixtral's int8 experts beside int4 attention) is
+  replicated by the rules, as in JAX, and its matmuls run on each rank's
+  rows (``models.quant``: B3 against the whole packed matrix, int8 leaves
+  dequantized in place). LoRA banks raise on a mesh (ROADMAP Queue A
+  item 10).
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
 ignored: ``aot_cache``.
@@ -1000,8 +1007,8 @@ class GenerationEngine:
     and submits the same requests in the same order; the ranks agree on
     each step (``_StepAgreement``). The mesh is installed around every
     step, admission, chunk and boundary hook, on whichever thread runs
-    them. Quantized weight trees, MoE trees and LoRA banks raise on a
-    mesh (ROADMAP Queue A item 10).
+    them. MoE trees (``MOE_RULES``) and quantized trees serve on a mesh;
+    LoRA banks raise there (ROADMAP Queue A item 10).
     """
 
     def __init__(self, params: Dict[str, Any], cfg, *, slots: int = 8,
@@ -1131,11 +1138,6 @@ class GenerationEngine:
         from ..parallel.sharding import tree_paths
         from ..train.optim import tree_map
 
-        if "router" in params["layers"]:
-            raise _not_on_mesh("an MoE tree")
-        if is_quantized(params["lm_head"]) or any(
-                is_quantized(w) for w in params["layers"].values()):
-            raise _not_on_mesh("a quantized weight tree")
         plain = []
         tree_map(lambda x, p: None if isinstance(x, DTensor)
                  and x.device_mesh == mesh else plain.append(p),
@@ -1143,8 +1145,8 @@ class GenerationEngine:
         if plain:
             raise ValueError(
                 f"on a mesh every param is a DTensor on that mesh "
-                f"(parallel.sharding.shard_pytree(params, LLAMA_RULES, "
-                f"mesh)); not {plain[:4]}")
+                f"(parallel.sharding.shard_pytree(params, LLAMA_RULES or "
+                f"MOE_RULES, mesh)); not {plain[:4]}")
 
     def _mesh_scope(self):
         """``use_mesh(self._mesh)`` on the current thread, and no grad."""

@@ -4,11 +4,14 @@ comes from, on the CPU.
 
     python3 kubetorch_tpu_torch/tools/mesh_comms.py --mesh '{"data": 2, "fsdp": 2, "tensor": 2}'
     python3 kubetorch_tpu_torch/tools/mesh_comms.py --decode --mesh '{"data": 2, "context": 4}'
+    python3 kubetorch_tpu_torch/tools/mesh_comms.py --model moe --mesh '{"expert": 4, "fsdp": 2}'
+    python3 kubetorch_tpu_torch/tools/mesh_comms.py --model moe --decode --mesh '{"expert": 2, "tensor": 2}'
 
 Spawns one gloo rank per device of ``--mesh`` (processes of its own, on
 the CPU, ``torch.distributed`` given its address, world size and rank),
 builds the mesh with ``parallel.build_mesh``, lays tiny fp32 Llama (or
-``--model vit``) out by the rule table and runs ``--steps`` steps of
+``--model vit``, or ``--model moe``: tiny Mixtral by ``MOE_RULES``
+through ``moe_loss``) out by the rule table and runs ``--steps`` steps of
 ``make_train_step(mesh=, rules=)``. For each step after the first (whose
 counts equal the later ones; it also fills DTensor's sharding cache) rank
 0 prints one JSON line: the collectives ``CommDebugMode`` counted, by
@@ -21,7 +24,8 @@ is an all-gather; those are the places to hold against what GSPMD would
 do. The counts are the program's, so a CPU run gives them; no time is
 measured.
 
-``--decode``: tiny fp32 Llama laid out by ``LLAMA_RULES``, served by
+``--decode``: tiny fp32 Llama laid out by ``LLAMA_RULES`` (``--model
+moe``: tiny Mixtral by ``MOE_RULES``), served by
 ``GenerationEngine(mesh=)`` with ``--batch`` slots (each holding a
 request) and a grid of ``--seq`` rows; after the admissions and ``--steps``
 decode steps, one more decode step of the whole grid
@@ -93,7 +97,8 @@ def _rank(rank: int, world: int, port: int, args) -> None:
     from torch.distributed.tensor.debug import CommDebugMode
 
     torch.set_num_threads(1)
-    from kubetorch_tpu_torch.parallel import LLAMA_RULES, VIT_RULES, build_mesh
+    from kubetorch_tpu_torch.parallel import (LLAMA_RULES, MOE_RULES, VIT_RULES,
+                                              build_mesh)
     from kubetorch_tpu_torch.serving import distributed
     from kubetorch_tpu_torch.train import adam, init_train_state, make_train_step
 
@@ -115,6 +120,17 @@ def _rank(rank: int, world: int, port: int, args) -> None:
 
             def loss(p, x, y):
                 return V.vit_loss(p, x, y, cfg)
+        elif args.model == "moe":
+            from kubetorch_tpu_torch.models import moe as M
+            cfg = M.MoeConfig.tiny(dtype=torch.float32, remat=False,
+                                   attn_impl=args.attn_impl)
+            params, rules = M.moe_init(cfg, device="cpu"), MOE_RULES
+            tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                                   generator=g)
+            batch = {"tokens": tokens, "targets": tokens.roll(-1, 1)}
+
+            def loss(p, t, y):
+                return M.moe_loss(p, t, y, cfg)
         else:
             from kubetorch_tpu_torch.models import llama as L
             cfg = L.LlamaConfig.tiny(dtype=torch.float32, remat=False,
@@ -158,15 +174,21 @@ def _decode_rank(rank: int, mesh, args) -> None:
     from torch.distributed.tensor.debug import CommDebugMode
 
     from kubetorch_tpu_torch.models import llama as L
-    from kubetorch_tpu_torch.parallel import LLAMA_RULES
+    from kubetorch_tpu_torch.models import moe as M
+    from kubetorch_tpu_torch.parallel import LLAMA_RULES, MOE_RULES
     from kubetorch_tpu_torch.parallel.mesh_context import use_mesh
     from kubetorch_tpu_torch.parallel.sharding import shard_pytree
     from kubetorch_tpu_torch.serve import GenerationEngine
     from kubetorch_tpu_torch.serve import engine as E
 
-    cfg = L.LlamaConfig.tiny(dtype=torch.float32, remat=False,
-                             attn_impl=args.attn_impl)
-    params = shard_pytree(L.llama_init(cfg, device="cpu"), LLAMA_RULES, mesh)
+    if args.model == "moe":
+        cfg = M.MoeConfig.tiny(dtype=torch.float32, remat=False,
+                               attn_impl=args.attn_impl)
+        params = shard_pytree(M.moe_init(cfg, device="cpu"), MOE_RULES, mesh)
+    else:
+        cfg = L.LlamaConfig.tiny(dtype=torch.float32, remat=False,
+                                 attn_impl=args.attn_impl)
+        params = shard_pytree(L.llama_init(cfg, device="cpu"), LLAMA_RULES, mesh)
     eng = GenerationEngine(params, cfg, slots=args.batch, max_len=args.seq,
                            prefill_buckets=(8,), device="cpu", mesh=mesh)
     for i in range(args.batch):
@@ -187,7 +209,7 @@ def _decode_rank(rank: int, mesh, args) -> None:
         rows = [dict(where=w, transition=t, shape=s, count=c)
                 for (w, t, s), c in sorted(log.items())]
         print(json.dumps(dict(
-            mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), model="llama",
+            mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), model=args.model,
             decode_step=dict(slots=n, grid_rows=args.seq,
                              layers=cfg.n_layers),
             grid=[repr(p) for p in eng._cache.k.placements],
@@ -199,7 +221,7 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mesh", default='{"data": 2, "fsdp": 2, "tensor": 2}')
-    ap.add_argument("--model", choices=("llama", "vit"), default="llama")
+    ap.add_argument("--model", choices=("llama", "vit", "moe"), default="llama")
     ap.add_argument("--attn-impl", default="auto")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=32)

@@ -233,10 +233,13 @@ def make_train_step(loss_fn: Callable, optimizer=None, mesh=None, rules=None,
     def shard_state(state: TrainState) -> TrainState:
         """Lay a TrainState out on the mesh per the rules. Each rank cuts
         its block on the leaf's own device and moves only that block to
-        the mesh's device; a leaf already laid out is gathered first. A
-        block that is the whole leaf on the mesh's device (a world of 1)
-        is the leaf itself, so the caller's state is then updated in place
-        by a ``donate=True`` step, as JAX's donation consumes it."""
+        the mesh's device; a leaf laid out otherwise is gathered first,
+        and one already in its placements on this mesh is kept (a state
+        built over params laid out by ``shard_pytree`` never holds a whole
+        leaf). A block that is the whole leaf on the mesh's device (a
+        world of 1) is the leaf itself, so the caller's state is then
+        updated in place by a ``donate=True`` step, as JAX's donation
+        consumes it."""
         from ..parallel.mesh import is_dtensor
         from ..parallel.sharding import to_dtensor
 
@@ -244,7 +247,10 @@ def make_train_step(loss_fn: Callable, optimizer=None, mesh=None, rules=None,
         opt_sh = _opt_shardings(state.opt_state, state.params, param_sh, mesh)
 
         def place(x, placements):
-            x = x.full_tensor() if is_dtensor(x) else x
+            if is_dtensor(x):
+                if x.device_mesh == mesh and list(x.placements) == list(placements):
+                    return x
+                x = x.full_tensor()
             return to_dtensor(x, mesh, placements)
 
         return TrainState(

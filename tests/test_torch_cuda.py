@@ -1571,3 +1571,79 @@ def test_world_of_one_mesh_engine_equals_the_plain_engine(nccl_mesh):
     (t0, l0, f0, c0), (t1, l1, f1, c1) = runs["plain"], runs["mesh"]
     assert t1 == t0 and l1 == l0 and c1 == c0
     assert all(torch.equal(a, b) for a, b in zip(f0, f1))
+
+
+# ---------------------------------------------------------------------------
+# MoE and quantized trees on a mesh: the expert-local plan of
+# models/moe.py (each rank's experts, or its slice of F) and B3 through
+# wdot on a replicated DTensor leaf; the multi-rank plan is held to JAX on
+# the CPU (tests/test_torch_moe_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", ["expert", "tensor"])
+def test_expert_local_plan_on_the_card_equals_the_plain_dispatch(cuda, dtype,
+                                                                 split):
+    """Two emulated ranks of an expert-sharded bank (each its own half of
+    the experts) or of a tensor-sharded one (each its half of every
+    expert's F), each running the plan's local body on the card; their
+    outputs' sum (the reduction the mesh does) against the plain dispatch
+    per row, at capacity 1.0 so pairs drop."""
+    from kubetorch_tpu_torch.models.llama import layer_weights
+    from kubetorch_tpu_torch.models.moe import (MoeConfig, _dispatch, _positions,
+                                                _route, _run_experts, moe_init)
+    cfg = MoeConfig.tiny(dim=512, ffn_dim=1024, n_heads=8, n_kv_heads=2,
+                         n_experts=8, capacity_factor=1.0, dtype=dtype)
+    lw = layer_weights(moe_init(cfg, seed=1, device=cuda), 0)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(2, 256, cfg.dim, generator=g, device=cuda).to(dtype)
+    want, _, kept = _dispatch(cfg, x, lw)
+    assert not bool(kept.all())
+    _, gate_vals, gate_idx = _route(cfg, x, lw)
+    capacity, pos, kept = _positions(cfg, gate_idx, x.shape[1])
+    bank = lw["experts"]
+    if split == "expert":
+        half = cfg.n_experts // 2
+        parts = [({k: v[r * half:(r + 1) * half] for k, v in bank.items()},
+                  r * half) for r in range(2)]
+    else:
+        f = cfg.ffn_dim // 2
+        parts = [({"w_gate": bank["w_gate"][..., r * f:(r + 1) * f],
+                   "w_up": bank["w_up"][..., r * f:(r + 1) * f],
+                   "w_down": bank["w_down"][:, r * f:(r + 1) * f]}, 0)
+                 for r in range(2)]
+    got = sum(_run_experts(x, gate_vals, gate_idx, pos, kept, capacity, b, start)
+              .float() for b, start in parts)
+    assert torch.isfinite(got).all()
+    assert row_rel_err(got, want.float()) <= ROW_RTOL[dtype]
+
+
+def test_q4_wdot_on_a_replicated_dtensor_leaf(nccl_mesh):
+    """B3 through wdot at a world of 1: x a DTensor, the packed int4 leaf
+    laid out by shard_pytree (replicated, as the rules leave every
+    quantized leaf): one launch on x's local rows against the whole
+    matrix, x's placements kept, the plain int4 matmul's values per row."""
+    from torch.distributed.tensor import DTensor
+
+    from kubetorch_tpu_torch.models.quant import wdot
+    from kubetorch_tpu_torch.parallel import LLAMA_RULES
+    from kubetorch_tpu_torch.parallel.sharding import shard_pytree
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn(1024, 512, generator=g, device="cuda")
+    leaf = shard_pytree({"layers": {"wq": _quantize_leaf_int4(w)}}, LLAMA_RULES,
+                        nccl_mesh)["layers"]["wq"]
+    assert all(p.is_replicate() for t in leaf.values() for p in t.placements)
+    for rows in (8, 300):
+        x = torch.randn(1, rows, 1024, generator=g, device="cuda").bfloat16()
+        xd = DTensor.from_local(x, nccl_mesh, list(leaf["scale"].placements),
+                                run_check=False)
+        q4_matmul.launches = 0
+        got = wdot(xd, leaf, dtype=torch.float32)
+        assert isinstance(got, DTensor) and got.placements == xd.placements
+        assert q4_matmul.launches == 1
+        want = q4_matmul_ref(x.reshape(rows, 1024), leaf["__kt_q4__"].to_local(),
+                             leaf["scale"].to_local())
+        assert row_rel_err(got.to_local().reshape(rows, -1), want) <= \
+            ROW_RTOL[torch.float32]

@@ -197,13 +197,17 @@ def test_submit_validation(params):
 @pytest.mark.parametrize("ctor_kw", [{"aot_cache": object()},
                                      {"mesh": object()}])
 def test_unported_engine_knobs_raise(params, ctor_kw):
-    """``aot_cache`` is not ported; a mesh is, but not for a quantized
-    weight tree (ROADMAP Queue A item 10), which it refuses before it
-    reads the mesh."""
+    """``aot_cache`` is not ported. A mesh is, for quantized weight trees
+    too: a quantized tree of plain tensors meets the mesh's layout check
+    as any plain tree does (``ValueError``: every param must be a DTensor
+    on the mesh), not a refusal of the feature. What still raises on a
+    mesh (LoRA banks, ROADMAP Queue A item 10) is held on a real mesh in
+    ``tests/test_torch_mesh_serve.py``."""
     from kubetorch_tpu_torch.models.quant import quantize_params
+    raised = NotImplementedError
     if "mesh" in ctor_kw:
-        params = quantize_params(params)
-    with pytest.raises(NotImplementedError):
+        params, raised = quantize_params(params), ValueError
+    with pytest.raises(raised, match="DTensor" if raised is ValueError else None):
         GenerationEngine(params, cfg(), slots=1, max_len=16, device="cpu",
                          **ctor_kw)
 

@@ -20,7 +20,17 @@ the same mesh and with the single-device run:
   prompt prefilled through ring attention;
 - ``tests/test_spec_engine.py`` ``TestShardedSpec`` (tensor mesh);
 - ``tests/test_kv_quant.py`` ``TestQuantSharded`` (int8 grid, tensor mesh);
-- ``tests/test_generate.py`` ``test_expert_mesh_disables_gather_decode``.
+- ``tests/test_generate.py`` ``test_expert_mesh_disables_gather_decode``;
+- MoE and quantized trees: the MoE tree (``MOE_RULES``) on data × expert
+  and on expert × tensor, Mixtral's mixed layout (int8 experts, their bank
+  replicated over the live expert axis, beside int4 attention and head) on
+  data × expert, one slot of the MoE tree on data × tensor (the decode
+  gather on each rank's shards), and the int8 and int4 Llama trees on data
+  × tensor and on data × context, each against JAX's engine on the same
+  mesh and on one device (the quantized trees are JAX's, converted by
+  ``models.convert`` and then laid out); and every leaf of those
+  quantized trees laid out where JAX's rules put it (each quantized leaf
+  replicated).
 
 The grid cases assert that each rank holds 1/(batch × context × tensor)
 of the grid's bytes and the layout's placements. Beyond JAX's cases: the
@@ -31,10 +41,10 @@ different times give the same tokens on every rank, a cancel asked on
 one rank retires the request on all at the same step, a rank holding a
 different request raises on every rank); the request features (prefix,
 auto_prefix, chunked prefill, penalties, logit_bias, seeded sampling) on
-the context mesh against the plain engine, and the features that raise on
-a mesh (LoRA banks, quantized weight trees); and a world of 1, whose mesh
-engine's tokens, logprobs and first-token logits are bitwise the plain
-engine's.
+the context mesh against the plain engine, and what raises on a mesh
+(LoRA banks); and a world of 1, whose mesh engine's tokens, logprobs and
+first-token logits are bitwise the plain engine's, on a plain tree and on
+an int8 tree.
 """
 
 import json
@@ -50,7 +60,8 @@ from kubetorch_tpu.models.generate import generate
 from kubetorch_tpu.models.llama import LlamaConfig, llama_init
 from kubetorch_tpu.parallel.mesh import build_mesh
 from kubetorch_tpu.parallel.mesh_context import use_mesh
-from kubetorch_tpu.parallel.sharding import LLAMA_RULES, shard_pytree
+from kubetorch_tpu.models import quant as jq
+from kubetorch_tpu.parallel.sharding import LLAMA_RULES, MOE_RULES, shard_pytree
 from kubetorch_tpu.serve import GenerationEngine, SpeculativeEngine
 
 from .test_torch_mesh_train import _flat
@@ -72,10 +83,11 @@ from kubetorch_tpu_torch.models import generate as G
 from kubetorch_tpu_torch.models import llama as L
 from kubetorch_tpu_torch.models import moe as M
 from kubetorch_tpu_torch.models.convert import params_from_numpy
-from kubetorch_tpu_torch.parallel import LLAMA_RULES, build_mesh
+from kubetorch_tpu_torch.parallel import LLAMA_RULES, MOE_RULES, build_mesh
 from kubetorch_tpu_torch.parallel import ring_attention as R
 from kubetorch_tpu_torch.parallel.mesh_context import use_mesh
-from kubetorch_tpu_torch.parallel.sharding import shard_pytree
+from kubetorch_tpu_torch.parallel.sharding import shard_pytree, tree_paths
+from kubetorch_tpu_torch.train.optim import tree_leaves
 from kubetorch_tpu_torch.serve import GenerationEngine, SpeculativeEngine
 from kubetorch_tpu_torch.serve import engine as E
 from kubetorch_tpu_torch.serve.kv_quant import quantize_rows
@@ -147,6 +159,33 @@ def features(params, c, logprobs=False, **ekw):
     if logprobs:
         out["sampled_lp"] = [h.logprobs for h in hs]
     return out
+
+
+def moe_cfg():
+    return M.MoeConfig.tiny(attn_impl="xla", dtype=torch.float32, remat=False,
+                            n_layers=2, n_experts=4, capacity_factor=4.0)
+
+
+def quantized(out, name):
+    """JAX's quantized trees of ``name``, converted: int8, and int4 (for an
+    MoE tree Mixtral's mixed layout of quantize_params_int4, int8 experts)."""
+    return {bits: load_tree(out / f"{name}_{bits}.npz") for bits in ("int8", "int4")}
+
+
+def served(params, c, mesh, rules, **kw):
+    """Greedy tokens of the PROMPTS through the mesh engine on ``params``
+    laid out by ``rules``."""
+    with use_mesh(mesh):
+        eng = GenerationEngine(shard_pytree(params, rules, mesh), c, slots=4,
+                               max_len=32, prefill_buckets=(4,), device="cpu", **kw)
+        return drain(eng)
+
+
+def placements(tree, rules, mesh):
+    """Every leaf's placements after shard_pytree, by path."""
+    sharded = shard_pytree(tree, rules, mesh)
+    return {p: [repr(x) for x in t.placements] for p, t in
+            zip(tree_leaves(tree_paths(sharded)), tree_leaves(sharded))}
 
 
 def write(out, name, rank, data):
@@ -228,6 +267,10 @@ def w8(out, rank):
         res["ring_gate_auto"] = G._sp_prefill_impl(ca, 1, 512)
         res["ring_gate_short"] = G._sp_prefill_impl(ca, 1, 256)
 
+    # quantized trees on the context mesh
+    for name, tree in quantized(out, "llama").items():
+        res[f"quant_{name}"] = served(tree, c, mesh, LLAMA_RULES)
+
     # the request features on the mesh against the plain engine
     res["features"] = features(sharded, c, mesh=mesh)
     res["features_plain"] = features(params, c)
@@ -265,10 +308,45 @@ def w4(out, rank):
     res["spec"] = [h.result(timeout=0) for h in hs]
     res["spec_rounds"] = eng.spec_stats.rounds
 
-    # the expert axis disables the gather decode (plain params)
-    moe = M.MoeConfig.tiny(attn_impl="xla", dtype=torch.float32, remat=False,
-                           n_layers=2, n_experts=4, capacity_factor=4.0)
+    # quantized trees on data x tensor
+    for name, tree in quantized(out, "llama").items():
+        res[f"quant_{name}"] = served(tree, c, mesh, LLAMA_RULES)
+
+    # the MoE tree on data x expert and expert x tensor; Mixtral's mixed
+    # layout (its int8 bank replicated) on data x expert
+    moe = moe_cfg()
     mparams = load_tree(out / "moe.npz")
+    meshes = {"data_expert": build_mesh({"data": 2, "expert": 2}, device="cpu"),
+              "expert_tensor": build_mesh({"expert": 2, "tensor": 2}, device="cpu")}
+    for name, m in meshes.items():
+        res[f"moe_{name}"] = served(mparams, moe, m, MOE_RULES)
+    res["moe_mixed_data_expert"] = served(quantized(out, "moe")["int4"], moe,
+                                          meshes["data_expert"], MOE_RULES)
+    # one slot: the decode takes the K-expert gather on the expert-free mesh
+    gathered = []
+    real = G.moe_ffn_decode
+    G.moe_ffn_decode = lambda *a, **k: gathered.append(1) or real(*a, **k)
+    try:
+        with use_mesh(mesh):
+            eng = GenerationEngine(shard_pytree(mparams, MOE_RULES, mesh), moe,
+                                   slots=1, max_len=32, prefill_buckets=(4,),
+                                   device="cpu")
+            res["moe_gather_data_tensor"] = drain(eng, PROMPTS[:1])
+    finally:
+        G.moe_ffn_decode = real
+    res["moe_gather_calls"] = len(gathered)
+    # where shard_pytree puts each quantized leaf
+    res["placements"] = {
+        "mesh": {k: list(m.mesh_dim_names) for k, m in
+                 dict(meshes, data_tensor=mesh).items()},
+        "llama_data_tensor": {k: placements(t, LLAMA_RULES, mesh)
+                              for k, t in quantized(out, "llama").items()},
+        "moe_data_expert": {k: placements(t, MOE_RULES, meshes["data_expert"])
+                            for k, t in quantized(out, "moe").items()},
+        "moe_expert_tensor": {k: placements(t, MOE_RULES, meshes["expert_tensor"])
+                              for k, t in quantized(out, "moe").items()}}
+
+    # the expert axis disables the gather decode (plain params)
     gathers = []
     real = G.moe_ffn_decode
     G.moe_ffn_decode = lambda *a, **k: gathers.append(1) or real(*a, **k)
@@ -361,16 +439,25 @@ def w1(out, rank):
     res["mesh_agreement"] = eng._agree is not None
     res["features"] = features(sharded, c, logprobs=True, mesh=mesh)
     res["features_plain"] = features(params, c, logprobs=True)
+    # a quantized tree on a mesh: the plain engine's tokens and logprobs
+    qruns = {}
+    q8 = quantized(out, "llama")["int8"]
+    for key, p, kw in (("plain", q8, {}),
+                       ("mesh", shard_pytree(q8, LLAMA_RULES, mesh), {"mesh": mesh})):
+        eng = GenerationEngine(p, c, slots=2, max_len=32, prefill_buckets=(4,),
+                               device="cpu", **kw)
+        hs = [eng.submit(q, max_new_tokens=N) for q in PROMPTS]
+        while eng.step():
+            pass
+        qruns[key] = ([h.result(timeout=0) for h in hs], [h.logprobs for h in hs])
+    res["quantized_equal"] = qruns["plain"] == qruns["mesh"]
     # what raises on a mesh
     from kubetorch_tpu_torch.models.lora import LoraConfig, lora_init
-    from kubetorch_tpu_torch.models.quant import quantize_params
     eng = GenerationEngine(sharded, c, slots=2, max_len=32, device="cpu", mesh=mesh)
     lcfg = LoraConfig(rank=2, targets=("wq",))
     raised = {}
     for name, fn in (
             ("lora", lambda: eng.register_adapter(lora_init(params, lcfg, seed=1), lcfg)),
-            ("quantized", lambda: GenerationEngine(
-                quantize_params(params), c, device="cpu", mesh=mesh)),
             ("plain_params", lambda: GenerationEngine(params, c, device="cpu", mesh=mesh))):
         try:
             fn()
@@ -423,11 +510,71 @@ def _op_inputs():
     return q, ck, cv, pos
 
 
-def _jax_results(cpu_mesh_devices, params, draft, long_prompt):
+def _quantized(params):
+    return {"int8": jq.quantize_params(params),
+            "int4": jq.quantize_params_int4(params)}
+
+
+def _served(params, cfg, mesh=None, rules=None, prompts=PROMPTS, slots=4):
+    """JAX's engine on ``params`` (laid out by ``rules`` on ``mesh``, or on
+    one device): the greedy tokens of ``prompts``."""
+    if mesh is None:
+        return _drain(GenerationEngine(params, cfg, slots=slots, max_len=32,
+                                       prefill_buckets=(4,)), prompts)
+    with use_mesh(mesh):
+        return _drain(GenerationEngine(shard_pytree(params, rules, mesh), cfg,
+                                       slots=slots, max_len=32,
+                                       prefill_buckets=(4,)), prompts)
+
+
+def _specs(tree, rules, mesh):
+    """JAX's spec of every leaf after its shard_pytree, by path."""
+    leaves = jax.tree_util.tree_leaves_with_path(shard_pytree(tree, rules, mesh))
+    return {"/".join(k.key for k in path): tuple(v.sharding.spec)
+            for path, v in leaves}
+
+
+def _jax_moe_results(cpu_mesh_devices, params, moe, out):
+    """JAX's engine over the quantized Llama trees on data x tensor and on
+    data x context, over the MoE tree on data x expert and expert x tensor,
+    over Mixtral's mixed layout on data x expert, and with one slot (the
+    decode gather) on data x tensor; each also on one device; and JAX's
+    specs of the quantized trees' leaves."""
+    cfg, mcfg = _cfg(), _moe_cfg()
+    meshes = {
+        "data_tensor": build_mesh({"data": 2, "tensor": 2}, devices=cpu_mesh_devices[:4]),
+        "data_context": build_mesh({"data": 2, "context": 4}, devices=cpu_mesh_devices[:8]),
+        "data_expert": build_mesh({"data": 2, "expert": 2}, devices=cpu_mesh_devices[:4]),
+        "expert_tensor": build_mesh({"expert": 2, "tensor": 2}, devices=cpu_mesh_devices[:4])}
+    for name, tree in _quantized(params).items():
+        out[f"solo_{name}"] = _served(tree, cfg)
+        for m in ("data_tensor", "data_context"):
+            out[f"{m}_{name}"] = _served(tree, cfg, meshes[m], LLAMA_RULES)
+    out["moe_solo"] = _served(moe, mcfg)
+    for m in ("data_expert", "expert_tensor"):
+        out[f"moe_{m}"] = _served(moe, mcfg, meshes[m], MOE_RULES)
+    mixed = jq.quantize_params_int4(moe)
+    out["moe_mixed_solo"] = _served(mixed, mcfg)
+    out["moe_mixed_data_expert"] = _served(mixed, mcfg, meshes["data_expert"],
+                                           MOE_RULES)
+    out["moe_gather_solo"] = _served(moe, mcfg, prompts=PROMPTS[:1], slots=1)
+    out["moe_gather_data_tensor"] = _served(moe, mcfg, meshes["data_tensor"],
+                                            MOE_RULES, PROMPTS[:1], slots=1)
+    out["specs"] = {
+        "llama_data_tensor": {k: _specs(t, LLAMA_RULES, meshes["data_tensor"])
+                              for k, t in _quantized(params).items()},
+        "moe_data_expert": {k: _specs(t, MOE_RULES, meshes["data_expert"])
+                            for k, t in _quantized(moe).items()},
+        "moe_expert_tensor": {k: _specs(t, MOE_RULES, meshes["expert_tensor"])
+                              for k, t in _quantized(moe).items()}}
+
+
+def _jax_results(cpu_mesh_devices, params, draft, long_prompt, moe):
     """Every JAX engine run the port is held to: the single-device
     references and JAX's engine on the same meshes."""
     cfg = _cfg()
     out = {"ref": [_reference_tokens(params, cfg, p, N) for p in PROMPTS]}
+    _jax_moe_results(cpu_mesh_devices, params, moe, out)
     tmesh = build_mesh({"data": 2, "tensor": 2}, devices=cpu_mesh_devices[:4])
     cmesh = build_mesh({"data": 2, "context": 4}, devices=cpu_mesh_devices[:8])
     ts, cs = (shard_pytree(params, LLAMA_RULES, m) for m in (tmesh, cmesh))
@@ -474,6 +621,9 @@ def worlds(tmp_path_factory, cpu_mesh_devices):
     moe = moe_init(jax.random.PRNGKey(0), _moe_cfg())
     for name, tree in (("llama", params), ("draft", draft), ("moe", moe)):
         np.savez(out / f"{name}.npz", **_flat(jax.device_get(tree)))
+        if name != "draft":
+            for bits, q in _quantized(tree).items():
+                np.savez(out / f"{name}_{bits}.npz", **_flat(jax.device_get(q)))
     for name, x in zip(("q", "ck", "cv", "pos"), _op_inputs()):
         np.save(out / f"op_{name}.npy", np.asarray(x))
     long_prompt = [int(x) for x in np.random.RandomState(3).randint(
@@ -493,7 +643,7 @@ def worlds(tmp_path_factory, cpu_mesh_devices):
     thread = threading.Thread(target=spawn)
     thread.start()
     try:
-        jax_out = _jax_results(cpu_mesh_devices, params, draft, long_prompt)
+        jax_out = _jax_results(cpu_mesh_devices, params, draft, long_prompt, moe)
     finally:
         thread.join()
     if errors:
@@ -739,8 +889,81 @@ def test_world_of_one_is_the_plain_engine_bitwise(worlds):
 
 
 def test_what_raises_on_a_mesh(worlds):
-    raised = worlds["w1"][0]["raised"]
-    for name in ("lora", "quantized"):
-        kind, msg = raised[name]
-        assert kind == "NotImplementedError" and "ROADMAP Queue A item 10" in msg
+    """LoRA banks raise on a mesh, naming ROADMAP Queue A item 10, and
+    plain params raise; a quantized tree serves, its tokens and logprobs
+    those of the plain engine on the same tree."""
+    r = worlds["w1"][0]
+    raised = r["raised"]
+    kind, msg = raised["lora"]
+    assert kind == "NotImplementedError" and "ROADMAP Queue A item 10" in msg
     assert raised["plain_params"][0] == "ValueError"
+    assert r["quantized_equal"] is True
+
+
+# -- MoE and quantized trees on a mesh -------------------------------------
+
+
+@pytest.mark.parametrize("bits", ["int8", "int4"])
+def test_quantized_tree_on_tensor_and_context_meshes(worlds, bits):
+    want = worlds["jax"][f"solo_{bits}"]
+    got = _same_on_every_rank(worlds["w4"], f"quant_{bits}")
+    assert got == worlds["jax"][f"data_tensor_{bits}"] == want
+    got = _same_on_every_rank(worlds["w8"], f"quant_{bits}")
+    assert got == worlds["jax"][f"data_context_{bits}"] == want
+
+
+@pytest.mark.parametrize("mesh", ["data_expert", "expert_tensor"])
+def test_moe_tree_on_expert_meshes(worlds, mesh):
+    got = _same_on_every_rank(worlds["w4"], f"moe_{mesh}")
+    assert got == worlds["jax"][f"moe_{mesh}"] == worlds["jax"]["moe_solo"]
+
+
+def test_mixtral_mixed_layout_on_an_expert_mesh(worlds):
+    """int8 experts beside int4 attention and head: the int8 bank is
+    replicated over the live expert axis, so each rank runs every expert
+    and the FFN's output is not summed over that axis."""
+    got = _same_on_every_rank(worlds["w4"], "moe_mixed_data_expert")
+    assert got == worlds["jax"]["moe_mixed_data_expert"] == \
+        worlds["jax"]["moe_mixed_solo"]
+
+
+def test_moe_decode_gather_on_a_data_tensor_mesh(worlds):
+    """One slot on a mesh with no expert axis: the K-expert gather runs on
+    each rank's shards of the bank (F split over tensor)."""
+    got = _same_on_every_rank(worlds["w4"], "moe_gather_data_tensor")
+    assert got == worlds["jax"]["moe_gather_data_tensor"] == \
+        worlds["jax"]["moe_gather_solo"]
+    assert all(r["moe_gather_calls"] > 0 for r in worlds["w4"])
+
+
+def _jax_placements(spec, mesh_names, ndim):
+    """A JAX spec as the DTensor placements it means on a mesh of the
+    port's live axes."""
+    out = []
+    for name in mesh_names:
+        dims = [d for d, e in enumerate(tuple(spec) + (None,) * ndim)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(f"Shard(dim={dims[0]})" if dims else "Replicate()")
+    return out
+
+
+@pytest.mark.parametrize("case,mesh", [
+    ("llama_data_tensor", "data_tensor"), ("moe_data_expert", "data_expert"),
+    ("moe_expert_tensor", "expert_tensor")])
+def test_shard_pytree_places_quantized_leaves_as_jax(worlds, case, mesh):
+    """Every leaf of the int8 and int4 trees (for MoE the int4 tree is
+    Mixtral's mixed layout) where JAX's rules put it: no rule matches a
+    path that ends in __kt_q8__, __kt_q4__ or scale, so each of those is
+    replicated, an int8 expert bank included."""
+    got = worlds["w4"][0]["placements"]
+    names = got["mesh"][mesh]
+    for bits, by_path in got[case].items():
+        want = worlds["jax"]["specs"][case][bits]
+        assert by_path.keys() == want.keys()
+        quant = [p for p in by_path
+                 if p.rsplit("/", 1)[-1] in ("__kt_q8__", "__kt_q4__", "scale")]
+        assert quant, bits
+        for p in quant:
+            assert want[p] == () and set(by_path[p]) == {"Replicate()"}, (bits, p)
+        for p, pl in by_path.items():
+            assert pl == _jax_placements(want[p], names, 8), (bits, p)

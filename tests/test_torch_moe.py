@@ -196,16 +196,52 @@ def test_moe_ffn_decode_equals_jax_and_the_dispatch(trees, bank):
     np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=TOL_FFN)
 
 
-def test_moe_ffn_decode_rejects_int4_banks_and_axes_raise(trees):
+def test_moe_ffn_decode_rejects_int4_banks_and_axes_raise(trees,
+                                                          cpu_mesh_devices):
+    """The decode gather refuses an int4 bank, as JAX's does. The axes no
+    longer raise: ``moe_ffn(ep_axis=, tp_axis=)`` inside the port's
+    ``shard_map_fn`` over a world of 1 (both axes of size 1) equals JAX's
+    inside ``shard_map`` over one device; the multi-rank cases are in
+    ``tests/test_torch_moe_mesh.py``."""
+    import torch.distributed as dist
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as JP
+
+    from kubetorch_tpu.parallel.mesh import shard_map_fn as jax_shard_map
+    from kubetorch_tpu_torch.parallel import build_mesh
+    from kubetorch_tpu_torch.parallel.mesh import PartitionSpec, shard_map_fn
+
     jp, pp = trees
-    _, plw = _layer0(jp, pp)
+    jlw, plw = _layer0(jp, pp)
     experts = {k: pq._quantize_leaf_int4(v) for k, v in plw["experts"].items()}
-    x = torch.from_numpy(_x((1, 1, 64)))
+    x = _x((2, 8, 64), seed=7)
     with pytest.raises(ValueError, match="int4 expert banks"):
-        pm.moe_ffn_decode(_pcfg(), x, dict(plw, experts=experts))
-    for kw in ({"ep_axis": "expert"}, {"tp_axis": "tensor"}):
-        with pytest.raises(NotImplementedError):
-            pm.moe_ffn(_pcfg(), x, plw, **kw)
+        pm.moe_ffn_decode(_pcfg(), torch.from_numpy(x[:, :1]),
+                          dict(plw, experts=experts))
+    jmesh = Mesh(np.array(cpu_mesh_devices[:1]).reshape(1, 1), ("expert", "tensor"))
+    want, jaux = jax_shard_map()(
+        lambda x, lw: jm.moe_ffn(_jcfg(), x, lw, ep_axis="expert", tp_axis="tensor"),
+        mesh=jmesh, in_specs=(JP(), JP()), out_specs=(JP(), JP()),
+        check_vma=False)(jnp.asarray(x), jlw)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = build_mesh({"expert": 1, "tensor": 1}, device="cpu")
+        names = ("w_gate", "w_up", "w_down")
+
+        def body(x, router, *bank):
+            lw = {"router": router, "experts": dict(zip(names, bank))}
+            return pm.moe_ffn(_pcfg(), x, lw, ep_axis="expert", tp_axis="tensor")
+
+        e_spec = PartitionSpec("expert", None, "tensor")
+        got, aux = shard_map_fn()(
+            body, mesh=mesh, in_specs=(PartitionSpec(), PartitionSpec(), e_spec,
+                                       e_spec, PartitionSpec("expert", "tensor", None)),
+            out_specs=(PartitionSpec(), PartitionSpec()))(
+            torch.from_numpy(x), plw["router"], *(plw["experts"][n] for n in names))
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL_FFN)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6)
 
 
 def test_int8_gather_dequant_is_exact(trees):
