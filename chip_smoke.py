@@ -225,14 +225,23 @@
    kernel checks); then the script as a torch rank (--mesh-serve-rank, a
    world of 1 over nccl) serving Llama-3-8B's 12 requests through
    GenerationEngine(mesh=) on params laid out by LLAMA_RULES and through
-   the plain engine: tokens, logprobs and first-token logits bitwise
-   equal, exact A1/B1 counts, decode ms/step, busy share and peak memory
-   of both; then 4 ranks of the script (--context-serve-rank) sharing the
+   the plain engine (run first, its large allocations named from the
+   allocator's history): tokens, logprobs and first-token logits bitwise
+   equal, exact A1/B1 counts, the two peaks within GRID_SIZED_GB, decode
+   ms/step, busy share and peak memory of both; then 3 rank-16 LoRA
+   adapters beside base requests through both engines, bitwise, exact
+   A1/B1; then 4 ranks of the script (--context-serve-rank) sharing the
    card in a gloo group over a {"context": 4} mesh, serving the 8B width
    at 2 layers on an 8 x 8192 grid split 4 ways with bf16 and int8 grids:
    decode through B1's / B2's partial mode and the combine (the kernels
    line's launches for them), exact counts, first tokens and the first
-   decode step's logits against the plain engine. Then Mixtral on a mesh
+   decode step's logits against the plain engine; then 4 ranks
+   (--spec-lora-rank) over {"context": 2, "tensor": 2}: a
+   SpeculativeEngine (the 8B width and the 1B-shape draft at 2 layers,
+   windows through the per-shard partial and combine, the draft's decode
+   through B1's partial mode) and a LoRA engine with 3 adapters, exact
+   counts, first tokens and first-step logits against the plain engines
+   on rank 0. Then Mixtral on a mesh
    ("moe_mesh"): the script as a torch rank (--moe-mesh-rank, a world of
    1 over nccl, KT_MESH {"expert": -1}) trains Mixtral's width at 2 layers
    through make_train_step(mesh=, rules=MOE_RULES) and the plain step
@@ -245,7 +254,15 @@
    and half of F: one train step (the loss within LOSS_ABS of the plain
    step's, the gradients' relative L2 printed) and 8 requests through the
    mesh engine with a bf16 grid (B1; first tokens equal, the first decode
-   step's logits within LOGITS_REL_L2 of the plain engine's).
+   step's logits within LOGITS_REL_L2 of the plain engine's). Last,
+   ResNet-50 at ImageNet's shape ("resnet"): the script as a torch rank
+   (--resnet-rank, a world of 1 over nccl, KT_MESH {"data": -1}) trains
+   5 steps of examples/resnet_dp.py's step (128 x 224², bf16 convs,
+   sgd(0.1, momentum=0.9)) through the data mesh and plain: losses, every
+   param and batch_stats hash bitwise; images/s, busy share, the
+   convolutions' share of busy, peak memory; and the bench's fp32
+   stages-[1, 1, 1, 1] model on the card against the CPU within
+   RESNET_FP32_REL.
 8. Prints the speculative and training phases' numbers and the script's
    wall time, one
    JSON line of per-kernel numbers, the card line, and as the last line
@@ -423,6 +440,41 @@ EXPERT_ENV = {"KT_MESH": '{"expert": 2, "tensor": 2}'}
 EXPERT_RANKS, EXPERT_LAYERS, EXPERT_B, EXPERT_S = 4, 2, 1, 1024
 EXPERT_PROMPTS = (40, 128, 200, 300, 512, 700, 1000, 1500)
 EXPERT_NEW = 16
+# the serving mesh's last refusals on the main path: SPEC_LORA_RANKS ranks
+# of the script (spec_lora_rank) sharing the card in a gloo group over
+# SPEC_LORA_ENV's mesh, Llama-3-8B's width at SPEC_LORA_LAYERS layers
+# (bf16, attn_impl "flash"): a SpeculativeEngine with the Llama-3.2-1B-shape
+# draft at SPEC_LORA_LAYERS layers, both grids split 2 ways over context
+# and KV heads over tensor (windows through the per-shard partial and the
+# combine, the draft's decode through B1's partial mode), and a LoRA engine
+# with 3 rank-LORA_RANK adapters beside base requests; rank 0 runs the
+# plain engines on the same params: first tokens equal, first-step logits
+# within LOGITS_REL_L2
+SPEC_LORA_RANK_FLAG = "--spec-lora-rank"
+SPEC_LORA_ENV = {"KT_MESH": '{"context": 2, "tensor": 2}'}
+SPEC_LORA_RANKS, SPEC_LORA_LAYERS, SPEC_LORA_NEW = 4, 2, 16
+SPEC_LORA_PROMPTS = (40, 128, 200, 300, 700, 1000, 1500, 90)
+# ResNet-50 at ImageNet's shape ("resnet"): the script again as a torch
+# rank (resnet_rank), a world of 1 over nccl on RESNET_ENV's one-dim data
+# mesh: RESNET_STEPS steps of examples/resnet_dp.py's step (train mode,
+# sgd(0.1, momentum=0.9)) at RESNET_B images of RESNET_HW², bf16 convs,
+# through the mesh (images a Shard(0) DTensor, params replicated, global
+# BatchNorm moments) and then plain, bitwise; then the stages-[1, 1, 1, 1]
+# fp32 model of the bench's config 2 on the card against the same code on
+# the CPU, within RESNET_FP32_REL of each quantity's largest magnitude
+RESNET_RANK_FLAG = "--resnet-rank"
+# the plain serving engine's allocations of at least this size are named
+# (the mesh engine's peak sat one grid, 2.14 GB, below the plain engine's)
+GRID_SIZED_GB = 0.5
+RESNET_ENV = {"KT_MESH": '{"data": -1}'}
+RESNET_B, RESNET_HW, RESNET_CLASSES, RESNET_STEPS = 128, 224, 1000, 5
+RESNET_PROFILED = 2
+RESNET_FP32 = dict(b=16, hw=64, filters=16, classes=100)
+RESNET_FP32_REL = 1e-4
+# cuDNN's convolution kernels (and its layout transposes) as the profiler
+# names them
+CONV_KERNEL_KEYS = ("conv", "cudnn", "xmma", "implicit_gemm", "fprop",
+                    "dgrad", "wgrad", "nchwToNhwc", "nhwcToNchw")
 # the tensor-core kernel functions of A1, A2 and A3, as the profiler's
 # kernel events name them
 FLASH_KERNEL_NAMES = ("flash_fwd_sm90", "bwd_dq_sm90", "bwd_dkv_sm90")
@@ -1265,17 +1317,20 @@ def decode_rate(steps):
 
 
 @contextlib.contextmanager
-def recorded_logits(engine_mod, name="_prefill_suffix_logits"):
-    """The first-token logits of every pass of ``name`` the engine runs,
-    in order: by default the suffix passes (a prefix hit's, and each
-    prefill chunk's after the first); ``_prefill_logits`` for the
-    from-zero prefills."""
+def recorded_logits(engine_mod, name="_prefill_suffix_logits",
+                    pick=lambda out: out[0], keep=None):
+    """The logits ``pick`` takes from the output of every call of ``name``
+    the module makes, in order (with ``keep``, of its first ``keep``
+    calls): by default the first-token logits of the suffix passes (a
+    prefix hit's, and each prefill chunk's after the first);
+    ``_prefill_logits`` for the from-zero prefills."""
     calls = []
     real = getattr(engine_mod, name)
 
     def record(*args, **kw):
         out = real(*args, **kw)
-        calls.append(out[0].clone())
+        if keep is None or len(calls) < keep:
+            calls.append(pick(out).clone())
         return out
 
     setattr(engine_mod, name, record)
@@ -1893,9 +1948,14 @@ def profile_steps(torch, label, run, n, groups=None):
               f"({dev_us(e) / busy_us:.3f} of busy) x{e.count // n}/step "
               f"{e.key[:90]}", flush=True)
     for name, keys in (groups or {}).items():
-        us = sum(dev_us(e) for e in events if any(k in e.key for k in keys))
+        members = [e for e in events if any(k in e.key for k in keys)]
+        us = sum(dev_us(e) for e in members)
         print(f"profile: {label}: {name}: {us / n / 1e3} ms/step, "
-              f"{us / busy_us} of busy (kernels named {keys})", flush=True)
+              f"{us / busy_us} of busy over {len(members)} kernels named "
+              f"{keys}, the largest: "
+              f"{[e.key[:70] for e in sorted(members, key=dev_us)[-3:]]}",
+              flush=True)
+        rec[f"{name}_share_of_busy"] = us / busy_us
     return rec
 
 
@@ -5136,6 +5196,10 @@ def drive_mesh_serve(card):
              f"{MESH_SERVE_PARENT_GB})")
     rec = run_rank("mesh_serve", MESH_SERVE_RANK_FLAG, MESH_ENV)
     rec["context"] = drive_context_serve(card)
+    rec["spec_lora"] = spawn_ranks("spec_lora", SPEC_LORA_RANK_FLAG,
+                                   SPEC_LORA_RANKS, SPEC_LORA_ENV)
+    print(f"spec_lora: {SPEC_LORA_RANKS} ranks, wall "
+          f"{rec['spec_lora']['wall_s']:.1f}s card={card}", flush=True)
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"mesh_serve: phase wall {rec['wall_s']:.1f}s card={card}", flush=True)
     return rec["launches"]["mesh"], rec
@@ -5273,17 +5337,8 @@ def context_serve_rank() -> None:
                     if not split:
                         fail(f"mesh_serve context: the grid is not split over "
                              f"context: {leaf.placements} {tuple(local.shape)}")
-                first_step = []
-                real = engine_mod._decode_step_impl
-
-                def record(*a, **k):
-                    out = real(*a, **k)
-                    if not first_step:
-                        first_step.append(out.float().clone())
-                    return out
-
-                engine_mod._decode_step_impl = record
-                try:
+                with recorded_logits(engine_mod, "_decode_step_impl",
+                                     pick=lambda o: o.float(), keep=1) as first_step:
                     for fn in counters.values():
                         fn.launches = 0
                     hs = [eng.submit(q, max_new_tokens=CONTEXT_NEW) for q in prompts]
@@ -5299,8 +5354,6 @@ def context_serve_rank() -> None:
                         if not left:
                             break
                     got = {k: fn.launches for k, fn in counters.items()}
-                finally:
-                    engine_mod._decode_step_impl = real
                 steps = eng.stats().decode_steps - steps0
                 outs = [h.result(timeout=0) for h in hs]
                 if any(len(o) != CONTEXT_NEW or not all(0 <= t < cfg.vocab_size
@@ -5347,6 +5400,174 @@ def context_serve_rank() -> None:
               flush=True)
 
 
+def spec_lora_rank() -> None:
+    """One of the SPEC_LORA_RANKS ranks of "spec_lora": gloo from the env
+    (serving.distributed, device="cpu"), the card as cuda:0, the mesh of
+    KT_MESH (context 2 x tensor 2) on cuda, DTensor's collectives routed
+    through c10d. Llama-3-8B's width at SPEC_LORA_LAYERS layers (bf16,
+    attn_impl "flash", random weights from a seed) and the
+    Llama-3.2-1B-shape draft at as many layers, both laid out by
+    LLAMA_RULES. (1) A SpeculativeEngine (spec_k SPEC_K, 8 slots, max_len
+    2048) over the SPEC_LORA_PROMPTS, SPEC_LORA_NEW tokens each: both grids
+    split over context (each rank 1024 rows of them after the rounds) and
+    KV heads over tensor; exact launches: A1 = (L + L_d) x 8 from-zero
+    prefills, B1's partial mode = L_d x (k - 1) x rounds, whole-cache B1
+    none. (2) A LoRA engine with 3 rank-LORA_RANK adapters beside 2 base
+    requests over the same prompts: A1 = L x 8, B1's partial mode = L x
+    decode steps. Rank 0 then runs the plain engines on the same params,
+    adapters and prompts: first tokens equal; the first verify window's
+    logits (spec) and the first decode step's (LoRA) within
+    LOGITS_REL_L2; the share of equal tokens printed. The record is rank
+    0's last line."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        fail("spec_lora rank: torch.cuda.is_available() is false")
+    import faulthandler
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
+    from kubetorch_tpu_torch.ops import attention as ops_attn
+    from kubetorch_tpu_torch.ops import decode_attention as ops_dec
+    from kubetorch_tpu_torch.parallel import LLAMA_RULES
+    from kubetorch_tpu_torch.parallel.sharding import shard_pytree
+    from kubetorch_tpu_torch.serve import GenerationEngine, SpeculativeEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+    from kubetorch_tpu_torch.serve import spec_engine as spec_mod
+    from kubetorch_tpu_torch.serving import distributed
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=SPEC_LORA_LAYERS,
+                              attn_impl="flash")
+    dcfg = dataclasses.replace(LlamaConfig.llama3_1b(), n_layers=SPEC_LORA_LAYERS,
+                               attn_impl="flash")
+    L, Ld = cfg.n_layers, dcfg.n_layers
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SPEC_LORA_PROMPTS]
+    counters = dict(flash_fwd=ops_attn.flash_attention,
+                    decode_attention=ops_dec.decode_attention,
+                    decode_attention_quant=ops_dec.decode_attention_quant,
+                    decode_attention_partial=ops_dec.decode_attention_partial,
+                    decode_attention_quant_partial=ops_dec.decode_attention_quant_partial)
+    distributed.init_process_group(device="cpu")
+    torch.cuda.set_device(0)
+    route_dtensor_collectives_through_c10d()
+    rank = dist.get_rank()
+    say = (lambda msg: print(msg, flush=True)) if rank == 0 else (lambda msg: None)
+    grid = dict(slots=8, max_len=2048, prefill_buckets=(128, 256, 512, 1024, 2048),
+                device="cuda")
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    try:
+        mesh = distributed.mesh(device="cuda")
+        say(f"spec_lora: KT_MESH {os.environ.get('KT_MESH')} -> {mesh} over "
+            f"{dist.get_backend()}, world {dist.get_world_size()}")
+        params = llama_init(cfg, seed=0, device="cuda")
+        draft = llama_init(dcfg, seed=SPEC_DRAFT_SEED, device="cuda")
+        sharded = shard_pytree(params, LLAMA_RULES, mesh)
+        dsharded = shard_pytree(draft, LLAMA_RULES, mesh)
+        lcfg = lora_config()
+        adapters = [seeded_adapter(torch, params, lcfg, seed) for seed in (1, 2, 3)]
+        runs = {"spec": {}, "lora": {}}
+        for label, p, d, kw in (("mesh", sharded, dsharded, dict(mesh=mesh)),
+                                ("plain", params, draft, {})):
+            if label == "plain" and rank != 0:
+                continue
+            # (1) speculative decoding
+            eng = SpeculativeEngine(p, cfg, d, dcfg, spec_k=SPEC_K, **grid, **kw)
+            # a round ingests the draft's block, then the target's window:
+            # the second call is the first verify window
+            with recorded_logits(spec_mod, "_grid_ingest",
+                                 pick=lambda o: o[:, 0].float(), keep=2) as kept:
+                zero()
+                hs = [eng.submit(q, max_new_tokens=SPEC_LORA_NEW) for q in prompts]
+                rounds0 = eng._steps
+                t = time.perf_counter()
+                while eng.step():
+                    pass
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                got = read()
+            rounds = eng._steps - rounds0
+            want = {k: 0 for k in counters}
+            want["flash_fwd"] = (L + Ld) * len(prompts)
+            want["decode_attention_partial" if kw else "decode_attention"] = (
+                Ld * (SPEC_K - 1) * rounds)
+            if got != want:
+                fail(f"spec_lora spec {label}: launches {got}, expected {want}")
+            if kw:
+                rows = [eng._cache[0].to_local().shape[2],
+                        eng._draft_cache[0].to_local().shape[2]]
+                if rows != [grid["max_len"] // 2] * 2:
+                    fail(f"spec_lora spec: rank {rank} holds {rows} rows of the "
+                         f"grids, not {grid['max_len'] // 2} each")
+            runs["spec"][label] = dict(
+                tokens=[h.result(timeout=0) for h in hs], first=kept[1],
+                launches=got, rounds=rounds, wall_s=wall,
+                accepted=eng.spec_stats.accepted, proposed=eng.spec_stats.proposed)
+            del eng, hs
+            torch.cuda.empty_cache()
+            # (2) LoRA banks
+            eng = GenerationEngine(p, cfg, **grid, **kw)
+            ids = [eng.register_adapter(a, lcfg) for a in adapters]
+            owners = [None, None, ids[0], ids[0], ids[1], ids[1], ids[2], ids[2]]
+            with recorded_logits(engine_mod, "_decode_step_impl",
+                                 pick=lambda o: o.float(), keep=1) as kept:
+                zero()
+                hs = [eng.submit(q, max_new_tokens=SPEC_LORA_NEW, adapter_id=a)
+                      for q, a in zip(prompts, owners)]
+                steps0 = eng.stats().decode_steps
+                t = time.perf_counter()
+                while eng.step():
+                    pass
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                got = read()
+            steps = eng.stats().decode_steps - steps0
+            want = {k: 0 for k in counters}
+            want["flash_fwd"] = L * len(prompts)
+            want["decode_attention_partial" if kw else "decode_attention"] = L * steps
+            if got != want:
+                fail(f"spec_lora lora {label}: launches {got}, expected {want}")
+            runs["lora"][label] = dict(
+                tokens=[h.result(timeout=0) for h in hs], first=kept[0],
+                launches=got, steps=steps, wall_s=wall)
+            del eng, hs
+            torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        say(f"spec_lora: rank 0 peak_memory_gb={peak}")
+        if rank == 0:
+            for name, run in runs.items():
+                a, b = run["mesh"], run["plain"]
+                rel = float((a["first"] - b["first"]).norm() / b["first"].norm())
+                firsts = [x[0] for x in a["tokens"]] == [x[0] for x in b["tokens"]]
+                same = sum(x == y for u, v in zip(a["tokens"], b["tokens"])
+                           for x, y in zip(u, v)) / (len(prompts) * SPEC_LORA_NEW)
+                say(f"spec_lora {name}: {SPEC_LORA_RANKS} ranks, launches "
+                    f"{a['launches']}; first tokens equal to the plain engine's "
+                    f"{firsts}; first-step logits rel_l2 {rel} (tol "
+                    f"{LOGITS_REL_L2}); equal tokens {same}; wall mesh "
+                    f"{a['wall_s']} s plain {b['wall_s']} s")
+                if not (firsts and rel <= LOGITS_REL_L2):
+                    fail(f"spec_lora {name}: first tokens equal {firsts}, "
+                         f"first-step rel_l2 {rel}")
+                for r in (a, b):
+                    del r["first"], r["tokens"]
+                run.update(logits_rel_l2=rel, equal_tokens=same)
+    finally:
+        distributed.destroy()
+    if rank == 0:
+        print(json.dumps(dict(ranks=SPEC_LORA_RANKS, layers=L, runs=runs,
+                              peak_memory_gb_rank0=peak)), flush=True)
+
+
 def serve_timed(torch, eng, prompts):
     """The engine phases' traffic on ``eng``: 6 requests up front, then one
     more per step while the grid decodes, each step ending in a
@@ -5376,14 +5597,16 @@ def mesh_serve_rank() -> None:
     Replicate() at a world of 1, the same storage as the plain tree), then
     the engine phases' traffic (8 slots, max_len 2048, greedy, the 12
     ENGINE_PROMPT_LENS prompts over every prefill bucket, 6 up front and
-    one a step while others decode) through GenerationEngine(mesh=) and
-    through the plain engine on the same params. Gates: tokens, logprobs
+    one a step while others decode) through the plain engine and then
+    GenerationEngine(mesh=) on the same params. Gates: tokens, logprobs
     and the first-token logits of every prefill bitwise equal between the
     two (else the first parting op of a 2-layer prefill is named), A1 =
-    32 x 12 prefills and B1 = 32 x decode steps in both. Prints decode
-    ms/step (steps that admitted nothing), the busy share of 4 profiled
-    decode steps of a full grid and peak memory, for both. The record is
-    the last line."""
+    32 x 12 prefills and B1 = 32 x decode steps in both, the two peaks
+    within GRID_SIZED_GB. Prints decode ms/step (steps that admitted
+    nothing), the busy share of 4 profiled decode steps of a full grid and
+    peak memory, for both, and the plain engine's allocations of at least
+    GRID_SIZED_GB through its warm-up admissions (AllocHistory). Then
+    mesh_serve_lora. The record is the last line."""
     import torch
     import torch.distributed as dist
 
@@ -5419,18 +5642,32 @@ def mesh_serve_rank() -> None:
         sharded = shard_pytree(params, LLAMA_RULES, mesh)
         check_rules_layout(sharded, LLAMA_RULES, "LLAMA_RULES", mesh, "mesh_serve")
         runs = {}
-        for name, p, kw in (("mesh", sharded, dict(mesh=mesh)),
-                            ("plain", params, {})):
+        large = None
+        # the plain engine first: its admission and decode under the
+        # allocator's history, the allocations of a grid's size named
+        for name, p, kw in (("plain", params, {}),
+                            ("mesh", sharded, dict(mesh=mesh))):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            if name == "plain":
+                history = AllocHistory(torch)
             eng = GenerationEngine(p, cfg, slots=8, max_len=2048,
                                    prefill_buckets=(128, 256, 512, 1024),
                                    device="cuda", **kw)
             hs = [eng.submit(w, max_new_tokens=2) for w in warm]
             while eng.step():
                 pass
-            for h in hs:
-                h.result(timeout=0)
+            # no loop variable: a handle left bound holds its engine, and
+            # with it a grid, into the next engine's run
+            [h.result(timeout=0) for h in hs]
+            if name == "plain":
+                large = history.large(GRID_SIZED_GB * 1e9)
+                print(f"mesh_serve: plain engine, allocations of at least "
+                      f"{GRID_SIZED_GB} GB from its construction through 5 "
+                      f"admissions (100-1500 tokens) and their decode steps: "
+                      f"{json.dumps(large)}; peak "
+                      f"{torch.cuda.max_memory_allocated() / 1e9} GB",
+                      flush=True)
             with recorded_logits(engine_mod, "_prefill_logits") as first:
                 launches.zero()
                 steps0 = eng.stats().decode_steps
@@ -5485,12 +5722,19 @@ def mesh_serve_rank() -> None:
                                                    grid=grid))
             fail(f"mesh_serve: the mesh engine differs from the plain engine "
                  f"({same}); first parting op of a 2-layer prefill: {parting}")
+        gap = abs(a["peak_memory_gb"] - b["peak_memory_gb"])
+        if not gap < GRID_SIZED_GB:
+            fail(f"mesh_serve: the engines' peaks differ by {gap} GB (mesh "
+                 f"{a['peak_memory_gb']}, plain {b['peak_memory_gb']})")
         share = {k: (r["profile"] or {}).get("device_busy_share")
                  for k, r in runs.items()}
         print(f"mesh_serve: decode ms/step mesh {a['ms_per_decode_step']} plain "
               f"{b['ms_per_decode_step']}; device busy share mesh {share['mesh']} "
               f"plain {share['plain']}; peak_memory_gb mesh "
               f"{a['peak_memory_gb']} plain {b['peak_memory_gb']}", flush=True)
+        for r in runs.values():
+            del r["first"], r["tokens"], r["logprobs"]
+        lora = mesh_serve_lora(torch, cfg, params, sharded, mesh, launches)
     finally:
         distributed.destroy()
     if dist.is_initialized():
@@ -5499,8 +5743,312 @@ def mesh_serve_rank() -> None:
                bitwise=same, parting_op=parting,
                ms_per_decode_step={k: runs[k]["ms_per_decode_step"] for k in runs},
                profile={k: runs[k]["profile"] for k in runs},
-               peak_memory_gb={k: runs[k]["peak_memory_gb"] for k in runs})
+               peak_memory_gb={k: runs[k]["peak_memory_gb"] for k in runs},
+               plain_large_allocations=large, lora=lora)
     print(json.dumps(rec), flush=True)
+
+
+class AllocHistory:
+    """The caching allocator's history (``torch.cuda.memory.
+    _record_memory_history``, Python stacks) from construction to
+    ``large()``, which stops it and returns every allocation of at least
+    ``floor`` bytes made meanwhile: its GB, whether it was still live, and
+    the frames of the port and of this script that made it."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        torch.cuda.memory._record_memory_history(max_entries=2_000_000,
+                                                 stacks="python")
+
+    def large(self, floor: float) -> list:
+        mem = self.torch.cuda.memory
+        try:
+            snap = mem._snapshot()
+        finally:
+            mem._record_memory_history(enabled=None)
+        freed = set()
+        out = []
+        for trace in snap.get("device_traces", []):
+            for ev in trace:
+                if ev["action"] in ("free_requested", "free_completed"):
+                    freed.add(ev["addr"])
+            for ev in trace:
+                if ev["action"] != "alloc" or ev["size"] < floor:
+                    continue
+                frames = [f"{os.path.basename(f['filename'])}:{f['line']} "
+                          f"{f['name']}" for f in ev.get("frames", [])
+                          if "kubetorch_tpu_torch" in f["filename"]
+                          or "chip_smoke" in f["filename"]]
+                out.append(dict(gb=ev["size"] / 1e9, live=ev["addr"] not in freed,
+                                frames=frames[:6]))
+        return out
+
+
+def mesh_serve_lora(torch, cfg, params, sharded, mesh, launches):
+    """LoRA banks on the mesh engine at a world of 1 ("mesh_serve lora"):
+    drive_lora's traffic (3 rank-LORA_RANK adapters, 2 base and 2 adapter
+    requests each, the third adapter unregistered mid-decode) through the
+    plain engine and GenerationEngine(mesh=) on the same params and
+    adapters. Gates: tokens, logprobs and first-token logits bitwise equal;
+    A1 = L x 8 prefills and B1 = L x decode steps in both. Returns decode
+    ms/step and the launches."""
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serve import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in LORA_PROMPTS]
+    lcfg = lora_config()
+    adapters = [seeded_adapter(torch, params, lcfg, seed) for seed in (1, 2, 3)]
+    runs = {}
+    for name, p, kw in (("plain", params, {}), ("mesh", sharded, dict(mesh=mesh))):
+        eng = GenerationEngine(p, cfg, **FEATURE_GRID, device="cuda", **kw)
+        ids = [eng.register_adapter(a, lcfg) for a in adapters]
+        warm = [eng.submit(prompts[0][:30], max_new_tokens=2, adapter_id=i)
+                for i in ids]
+        drain(torch, eng)
+        [h.result(timeout=0) for h in warm]
+        owners = [None, None, ids[0], ids[0], ids[1], ids[1], ids[2], ids[2]]
+        steps0 = eng.stats().decode_steps
+        with recorded_logits(engine_mod, "_prefill_logits") as first:
+            launches.zero()
+            handles = [eng.submit(q, max_new_tokens=MAX_NEW, adapter_id=a)
+                       for q, a in zip(prompts, owners)]
+            eng.step()
+            torch.cuda.synchronize()
+            ms = timed_steps(torch, eng, LORA_TIMED_STEPS)
+            eng.unregister_adapter(ids[2])
+            drain(torch, eng)
+            got = launches.read()
+        steps = eng.stats().decode_steps - steps0
+        check_launches(f"mesh_serve lora: {name} engine, 8 prefills and {steps} "
+                       "decode steps (A1, B1)",
+                       (got["flash_fwd"], got["decode_attention"]),
+                       (L * len(prompts), L * steps))
+        runs[name] = dict(tokens=[h.result(timeout=0) for h in handles],
+                          logprobs=[h.logprobs for h in handles],
+                          first=list(first), ms=ms,
+                          launches=(got["flash_fwd"], got["decode_attention"]))
+        del eng, handles
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["mesh"], runs["plain"]
+    same = dict(tokens=a["tokens"] == b["tokens"],
+                logprobs=a["logprobs"] == b["logprobs"],
+                first_token_logits=len(a["first"]) == len(b["first"]) == 8 and all(
+                    torch.equal(x, y) for x, y in zip(a["first"], b["first"])))
+    print(f"mesh_serve lora: 3 adapters (rank {LORA_RANK}) beside 2 base "
+          f"requests, the third unregistered mid-decode: mesh engine vs plain "
+          f"engine, bitwise: {same}; decode ms/step with 3 adapters mesh "
+          f"{a['ms']} plain {b['ms']} ({LORA_TIMED_STEPS} steps, 8 slots)",
+          flush=True)
+    if not all(same.values()):
+        fail(f"mesh_serve lora: the mesh engine's LoRA serving differs from "
+             f"the plain engine's: {same}")
+    del adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"mesh_serve lora: wall {wall:.1f}s", flush=True)
+    return dict(bitwise=same, ms_per_decode_step={k: runs[k]["ms"] for k in runs},
+                launches={k: list(runs[k]["launches"]) for k in runs},
+                wall_s=wall)
+
+
+def drive_resnet(card):
+    """ResNet-50 at ImageNet's shape ("resnet"): the script started again
+    as a torch rank (RESNET_RANK_FLAG, a world of 1 over nccl) that does
+    the work and fails the phase by exiting non-zero. Returns its
+    record."""
+    t_phase = time.perf_counter()
+    rec = run_rank("resnet", RESNET_RANK_FLAG, RESNET_ENV)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"resnet: phase wall {rec['wall_s']:.1f}s card={card}", flush=True)
+    return rec
+
+
+def resnet_step(torch, cfg, opt, params, stats, opt_state, images, labels,
+                train=True):
+    """examples/resnet_dp.py's step in the port: resnet_loss's value and
+    gradients (on a mesh the loss and each gradient reduced to the params'
+    placements), the optimizer's update and ``p + u``, both in place.
+    Returns (params, new stats, opt_state, loss)."""
+    from kubetorch_tpu_torch.models.resnet import resnet_loss
+    from kubetorch_tpu_torch.parallel.mesh import is_dtensor
+    from kubetorch_tpu_torch.train.optim import tree_map
+
+    leaves = []
+
+    def req(t):
+        t = t.detach().requires_grad_()
+        leaves.append(t)
+        return t
+
+    ps = tree_map(req, params)
+    loss, new = resnet_loss(ps, stats, images, labels, cfg, train=train)
+    if is_dtensor(loss):
+        loss = loss.full_tensor()
+    grads = iter(torch.autograd.grad(loss, leaves))
+
+    def placed(p):
+        g = next(grads)
+        return g.redistribute(p.device_mesh, p.placements) if is_dtensor(g) else g
+
+    grads = tree_map(placed, ps)
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, opt_state, params, inplace=True)
+        params = tree_map(lambda p, u: p.add_(u), params, updates)
+    return params, (new or stats), opt_state, loss.detach()
+
+
+def resnet_rank() -> None:
+    """The torch rank of "resnet": distributed.init_process_group() (nccl)
+    and distributed.mesh() from KT_MESH, a one-dim data mesh of size 1.
+    ResNet-50 (bf16 convs, RESNET_CLASSES classes, random weights from a
+    seed), RESNET_B random images of RESNET_HW² from a seed,
+    sgd(0.1, momentum=0.9): RESNET_STEPS train-mode steps with the images
+    a DTensor laid out by batch_sharding and the params and statistics
+    replicated, then the same steps plain from the same start. Gates: each
+    step's loss, every param's and batch_stats leaf's hash bitwise equal,
+    the losses finite. Prints images/s and ms/step (steps 2 on), the busy
+    share and the convolutions' share of busy over RESNET_PROFILED
+    profiled plain steps, and the peak memory. Then the fp32 model of the
+    bench's config 2 (stages [1, 1, 1, 1]) on the card against the same
+    code on the CPU: loss, new statistics and gradients within
+    RESNET_FP32_REL. The record is the last line."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        fail("resnet rank: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from kubetorch_tpu_torch.models import resnet as R
+    from kubetorch_tpu_torch.parallel.sharding import (ShardingRules,
+                                                       batch_sharding,
+                                                       shard_pytree, to_dtensor)
+    from kubetorch_tpu_torch.serving import distributed
+    from kubetorch_tpu_torch.train.optim import sgd, tree_leaves, tree_map
+
+    cfg = R.ResNet50(num_classes=RESNET_CLASSES)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    images = torch.randn((RESNET_B, RESNET_HW, RESNET_HW, 3), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, RESNET_CLASSES, (RESNET_B,), generator=gen,
+                           device="cuda")
+    params0, stats0 = R.resnet_init(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params0))
+    opt = sgd(0.1, momentum=0.9)
+    distributed.init_process_group()
+    try:
+        mesh = distributed.mesh()
+        print(f"resnet: KT_MESH {os.environ.get('KT_MESH')} -> {mesh} over "
+              f"{dist.get_backend()}, world {dist.get_world_size()}; ResNet-50 "
+              f"{n_params} params, {RESNET_B} x {RESNET_HW}² images", flush=True)
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+            fail(f"resnet: backend {dist.get_backend()} on {mesh.device_type}")
+        replicated = ShardingRules(rules=[])
+        runs = {}
+        for name in ("mesh", "plain"):
+            params = tree_map(torch.clone, params0)
+            stats = tree_map(torch.clone, stats0)
+            x, y = images, labels
+            if name == "mesh":
+                params = shard_pytree(params, replicated, mesh)
+                stats = shard_pytree(stats, replicated, mesh)
+                x = to_dtensor(images, mesh, batch_sharding(mesh).placements)
+            opt_state = opt.init(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, dt = [], []
+            for _ in range(RESNET_STEPS):
+                t = time.perf_counter()
+                params, stats, opt_state, loss = resnet_step(
+                    torch, cfg, opt, params, stats, opt_state, x, y)
+                torch.cuda.synchronize()
+                dt.append(time.perf_counter() - t)
+                losses.append(float(loss))
+            local = tree_map(lambda t: t.to_local() if hasattr(t, "to_local")
+                             else t, (params, stats))
+            ms = sum(dt[1:]) / len(dt[1:]) * 1e3
+            runs[name] = dict(losses=losses, ms_per_step=ms,
+                              images_per_s=RESNET_B / ms * 1e3,
+                              first_step_ms=dt[0] * 1e3,
+                              params=leaf_hashes(torch, local[0]),
+                              stats=leaf_hashes(torch, local[1]),
+                              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if name == "plain":
+                state = [params, stats, opt_state]
+
+                def one():
+                    state[:3] = resnet_step(torch, cfg, opt, *state, x, y)[:3]
+
+                runs[name]["profile"] = profile_steps(
+                    torch, f"resnet: ResNet-50 train step, {RESNET_B} x "
+                    f"{RESNET_HW}² bf16", one, RESNET_PROFILED,
+                    groups={"conv": CONV_KERNEL_KEYS})
+                del state
+            print(f"resnet: {name} step: losses {losses}; ms/step {ms} (steps 2 "
+                  f"to {RESNET_STEPS}), first step {dt[0] * 1e3} ms; images/s "
+                  f"{RESNET_B / ms * 1e3}; peak_memory_gb "
+                  f"{runs[name]['peak_memory_gb']}", flush=True)
+            del params, stats, opt_state, x
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = runs["mesh"], runs["plain"]
+        same = dict(losses=a["losses"] == b["losses"], params=a["params"] == b["params"],
+                    batch_stats=a["stats"] == b["stats"])
+        print(f"resnet: the data-mesh step vs the plain step over {RESNET_STEPS} "
+              f"steps, bitwise: {same}", flush=True)
+        if not all(same.values()) or not all(math.isfinite(v) for v in a["losses"]):
+            fail(f"resnet: the mesh step differs from the plain step: {same}, "
+                 f"losses {a['losses']} / {b['losses']}")
+        fp32 = resnet_fp32_card_vs_cpu(torch, R)
+    finally:
+        distributed.destroy()
+    for r in runs.values():
+        del r["params"], r["stats"]
+    print(json.dumps(dict(bitwise=same, runs=runs, fp32=fp32, batch=RESNET_B,
+                          hw=RESNET_HW, params=n_params)), flush=True)
+
+
+def resnet_fp32_card_vs_cpu(torch, R) -> dict:
+    """The bench's config-2 model (stages [1, 1, 1, 1], ResNetBlock) in
+    fp32, train mode, RESNET_FP32's batch: loss, new batch_stats and every
+    gradient on the card (cuDNN, TF32 off) against the same code on the
+    CPU, each within RESNET_FP32_REL of the CPU quantity's largest
+    magnitude."""
+    from kubetorch_tpu_torch.train.optim import tree_leaves, tree_map
+
+    c = RESNET_FP32
+    cfg = R.ResNet(stage_sizes=(1, 1, 1, 1), block_cls=R.ResNetBlock,
+                   num_filters=c["filters"], num_classes=c["classes"],
+                   dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((c["b"], c["hw"], c["hw"], 3),
+                                             dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, c["classes"], c["b"]))
+    params, stats = R.resnet_init(2, cfg, device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        loss, new = R.resnet_loss(p, tree_map(lambda t: t.to(dev), stats),
+                                  x.to(dev), y.to(dev), cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        out[dev] = ([loss.detach().cpu()], [t.cpu() for t in tree_leaves(new)],
+                    [g.cpu() for g in grads])
+    rel = {}
+    for i, what in enumerate(("loss", "batch_stats", "grads")):
+        got, want = out["cuda"][i], out["cpu"][i]
+        scale = max(float(w.abs().max()) for w in want) or 1.0
+        rel[what] = max(float((g - w).abs().max()) for g, w in zip(got, want)) / scale
+    print(f"resnet: fp32 stages [1, 1, 1, 1] on the card vs the CPU, largest "
+          f"difference over the largest magnitude: {rel} (tol {RESNET_FP32_REL})",
+          flush=True)
+    if not all(v <= RESNET_FP32_REL for v in rel.values()):
+        fail(f"resnet: the card's fp32 ResNet differs from the CPU's: {rel}")
+    return rel
 
 
 def drive_moe_mesh(card):
@@ -5679,8 +6227,7 @@ def moe_mesh_serve(torch, mesh, ops_attn, ops_dec, ops_q4):
         hs = [eng.submit(w, max_new_tokens=2) for w in warm]
         while eng.step():
             pass
-        for h in hs:
-            h.result(timeout=0)
+        [h.result(timeout=0) for h in hs]
         with recorded_logits(engine_mod, "_prefill_logits") as first:
             launches.zero()
             steps0 = eng.stats().decode_steps
@@ -5978,17 +6525,8 @@ def expert_rank() -> None:
             eng = GenerationEngine(p, cfg, slots=8, max_len=2048,
                                    prefill_buckets=(128, 256, 512, 1024),
                                    device="cuda", **kw)
-            first_step = []
-            real = engine_mod._decode_step_impl
-
-            def record(*a, **k):
-                out = real(*a, **k)
-                if not first_step:
-                    first_step.append(out.float().clone())
-                return out
-
-            engine_mod._decode_step_impl = record
-            try:
+            with recorded_logits(engine_mod, "_decode_step_impl",
+                                 pick=lambda o: o.float(), keep=1) as first_step:
                 fa.launches = dec.launches = 0
                 hs = [eng.submit(q, max_new_tokens=EXPERT_NEW) for q in prompts]
                 steps0, dt = eng.stats().decode_steps, []
@@ -6003,8 +6541,6 @@ def expert_rank() -> None:
                     if not left:
                         break
                 got = (fa.launches, dec.launches)
-            finally:
-                engine_mod._decode_step_impl = real
             steps = eng.stats().decode_steps - steps0
             outs = [h.result(timeout=0) for h in hs]
             if any(len(o) != EXPERT_NEW or not all(0 <= x < cfg.vocab_size for x in o)
@@ -6132,6 +6668,10 @@ def main() -> None:
     mm_train, mm_serve = (moe_mesh["train"]["launches"]["mesh"],
                           moe_mesh["serve"]["launches"]["mesh"])
     ep_n = moe_mesh["expert_ranks"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet = drive_resnet(card)
+    sl = mesh_serve["spec_lora"]["runs"]
     trains = {"lora_train": lora_train, "moe_train": moe_train}
 
     def train_launches(i):
@@ -6158,6 +6698,9 @@ def main() -> None:
              fabric=dict(launches=fabric_n[0]),
              mesh=dict(launches=mesh_n[0]),
              mesh_serve=dict(launches=mesh_serve_n[0]),
+             mesh_serve_lora=dict(launches=mesh_serve["lora"]["launches"]["mesh"][0]),
+             spec_lora=dict(launches={k: r["mesh"]["launches"]["flash_fwd"]
+                                      for k, r in sl.items()}),
              mesh_serve_context=dict(launches={k: n["flash_fwd"]
                                                for k, n in ctx_n.items()}),
              moe_mesh=dict(launches=dict(train=mm_train[0],
@@ -6190,6 +6733,7 @@ def main() -> None:
              spec_self=dict(launches=spec_n["spec_self"]["decode_attention"]),
              spec_q4=dict(launches=qspec_n["decode_attention"]),
              mesh_serve=dict(launches=mesh_serve_n[1]),
+             mesh_serve_lora=dict(launches=mesh_serve["lora"]["launches"]["mesh"][1]),
              expert_ranks=dict(launches=ep_n["serve"]["decode_attention"]),
              draft_hd64=dec_draft),
         dict(name="decode_attention_partial", route="cuda",
@@ -6200,6 +6744,9 @@ def main() -> None:
              f"{CONTEXT_SHARDS} gloo ranks on the card, each B1's partial "
              "mode over its cache shard, then sp_decode_attention's combine; "
              "times: the same over emulated shards in one process",
+             spec_lora=dict(launches={
+                 k: r["mesh"]["launches"]["decode_attention_partial"]
+                 for k, r in sl.items()}),
              **dec_part),
         dict(name="decode_attention_quant_partial", route="cuda",
              source="kubetorch_tpu_torch/csrc/decode_attention.cu",
@@ -6264,6 +6811,7 @@ def main() -> None:
     print(f"mesh: {json.dumps(mesh)} card={card}", flush=True)
     print(f"mesh_serve: {json.dumps(mesh_serve)} card={card}", flush=True)
     print(f"moe_mesh: {json.dumps(moe_mesh)} card={card}", flush=True)
+    print(f"resnet: {json.dumps(resnet)} card={card}", flush=True)
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -6285,5 +6833,9 @@ if __name__ == "__main__":
         mesh_serve_rank()
     elif sys.argv[1:] == [CONTEXT_RANK_FLAG]:
         context_serve_rank()
+    elif sys.argv[1:] == [SPEC_LORA_RANK_FLAG]:
+        spec_lora_rank()
+    elif sys.argv[1:] == [RESNET_RANK_FLAG]:
+        resnet_rank()
     else:
         main()

@@ -12,6 +12,11 @@ chain's state, step) into the port's ``train.TrainState``: optax's state
 classes map by name onto their copies in ``train/optim.py``, so a run
 resumes from the same moments and counts, not only the same weights.
 
+``resnet_from_flax`` carries a flax ResNet's ``variables`` (``params``
+and ``batch_stats``, as numpy) into the port's pair of trees under the
+same module names; the one change of layout is the conv kernel, flax's
+HWIO turned into PyTorch's (O, I, kh, kw).
+
 ``params_to_numpy`` is the way back (the host hand-off of a checkpoint or
 a weight rollout): each tensor becomes a C-contiguous numpy array of its
 own, copied off the device. numpy has no bf16, so a bf16 tensor crosses
@@ -97,3 +102,32 @@ def train_state_from_numpy(state: Any, device=None):
     return TrainState(params=params_from_numpy(state.params, device),
                       opt_state=_opt_state(state.opt_state, device),
                       step=_leaf(np.asarray(state.step), device))
+
+
+def _is_conv(path: str, leaf: np.ndarray) -> bool:
+    return path.endswith("kernel") and np.ndim(leaf) == 4
+
+
+def _map_paths(fn, tree: Any, prefix: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def resnet_from_flax(variables: Any, device=None):
+    """A flax ResNet's ``variables`` as numpy (``{"params": ...,
+    "batch_stats": ...}``, e.g. ``jax.tree_util.tree_map(np.asarray,
+    variables)``) → the port's ``(params, batch_stats)`` on ``device``
+    (``models.resnet``), module names kept; conv kernels HWIO → (O, I,
+    kh, kw), dense kernels stay (in, out)."""
+    device = resolve_device(device)
+
+    def leaf(path, a):
+        a = np.asarray(a)
+        if _is_conv(path, a):
+            a = a.transpose(3, 2, 0, 1)
+        return _leaf(a, device)
+
+    return (_map_paths(leaf, variables["params"]),
+            params_from_numpy(variables.get("batch_stats", {}), device))

@@ -7,8 +7,10 @@ target ``t`` of shape (L, d_in, d_out), ``t__a`` (L, d_in, r) and ``t__b``
 folds them into the weights (fp32 delta, cast back); the engine instead
 applies them on the activation path, ``x·W + s·(x·A)·B`` with the product
 in fp32 (``lora_delta``), so different slots run different adapters
-through one decode step (``serve.engine``). Zero factors add exactly 0.0,
-which keeps base traffic beside adapters bit-identical.
+through one decode step (``serve.engine``). On a mesh the banks stay
+plain tensors, whole on every rank, and each delta is added in the layout
+of the sharded base product it joins (``lora_proj``). Zero factors add
+exactly 0.0, which keeps base traffic beside adapters bit-identical.
 
 Training (``lora_loss``) merges in the graph each step, so gradients and
 optimizer state exist only for the adapters; the base is closed over and
@@ -29,6 +31,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import is_dtensor
 from .quant import is_quantized, wdot
 
 
@@ -138,22 +141,63 @@ def lora_proj(x: torch.Tensor, w: Any, lora, target: str) -> torch.Tensor:
     """``x @ W`` plus the adapter delta when ``lora`` carries this target.
     ``lora``: None, or (adapters_by_target, scale), adapters_by_target
     mapping target → (a, b) in either ``lora_delta`` layout. ``w`` may be
-    a packed-int4 leaf (``quant.wdot`` takes it to the int4 kernel)."""
+    a packed-int4 leaf (``quant.wdot`` takes it to the int4 kernel). On a
+    mesh (x a DTensor) the delta lands in the base product's layout
+    (:func:`_add_on_mesh`)."""
     y = wdot(x, w)
     if lora is not None:
         by_target, scale = lora
         ab = by_target.get(target)
         if ab is not None:
+            if is_dtensor(x):
+                return _add_on_mesh(y, x, ab[0], ab[1], scale)
             y = y + lora_delta(x, ab[0], ab[1], scale)
     return y
 
 
+def _add_on_mesh(y, x, a, b, scale: float):
+    """``y + s·(x·A)·B`` for DTensors x (B, T, D) and y = x·W, with the
+    factors plain tensors equal on every rank (the banks are replicated,
+    as JAX's plain arrays are under a mesh). Per mesh dim, from the layout
+    ``common.linear`` gave y: a batch or sequence shard of y is kept; a
+    pending sum in y (wo's product, D split over ``tensor``) means x and
+    A's rows are cut alike, and the partial delta joins y's pending sum,
+    so the reduction that settles y adds the delta once; a column shard of
+    y (wq/wk/wv over ``tensor``) takes the rank's columns of the delta, a
+    local slice. 3-D factors hold one slot each for x's local rows (the
+    engine gathers each rank's own slots)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, last = x.device_mesh, x.ndim - 1
+    xs, ds, cut = [], [], []
+    for p in y.placements:
+        if p.is_partial():
+            xs.append(Shard(last)), ds.append(Partial()), cut.append(Shard(a.dim() - 2))
+        elif isinstance(p, Shard) and p.dim < last:
+            xs.append(p), ds.append(p), cut.append(Replicate())
+        else:
+            xs.append(Replicate()), ds.append(Replicate()), cut.append(Replicate())
+    x_l = x.redistribute(mesh, xs).to_local()
+    a, b = (t.full_tensor() if is_dtensor(t) else t for t in (a, b))
+    if a.dim() == 3 and a.shape[0] != x_l.shape[0]:
+        raise ValueError(f"per-slot factors for {a.shape[0]} slots beside "
+                         f"{x_l.shape[0]} local rows of x")
+    if Partial() in ds:
+        a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False).redistribute(mesh, cut).to_local()
+    shape = x.shape[:-1] + (b.shape[-1],)
+    delta = DTensor.from_local(
+        lora_delta(x_l, a, b, scale), mesh, ds, run_check=False,
+        shape=shape, stride=torch.empty(shape, device="meta").stride())
+    return y + delta.redistribute(mesh, y.placements)
+
+
 def gather_slot_adapters(bank_l, aidx, lora_scale, banks):
     """The per-slot multi-LoRA gather: ``bank_l`` maps target → (A (N,
-    ..., D, R), B (N, ..., R, O)) stacked factors, ``aidx`` (SLOTS,) the
-    per-slot bank indices (0 = the zero adapter = base). Returns a
-    ``lora_proj``-shaped (adapters_by_target, scale), or None when no bank
-    exists."""
+    ..., D, R), B (N, ..., R, O)) stacked factors, ``aidx`` the bank index
+    of each slot gathered (0 = the zero adapter = base): every slot, or on
+    a mesh the rank's own slots. Returns a ``lora_proj``-shaped
+    (adapters_by_target, scale), or None when no bank exists."""
     if banks:
         return ({t: (a[aidx], b_[aidx])
                  for t, (a, b_) in bank_l.items()}, lora_scale)

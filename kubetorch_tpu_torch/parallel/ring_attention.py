@@ -233,6 +233,68 @@ def sp_decode_attention_quant(q, kq, ks, vq, vs, pos, *, axis_name: str,
     return _combine(m, l, acc, axis_name, q.dtype)
 
 
+def window_attention_partial(q, layer, posm, offset: int, s_eff: int,
+                             scale: float):
+    """The speculative engine's window attention (``serve.spec_engine.
+    _window_attend``'s math) over one shard of cache rows, un-normalised:
+    q (B, W, NH, Hd) at global positions ``posm`` (B, W); ``layer`` the
+    shard's rows of one layer, ``(ck, cv)`` (B, S_local, NKV, Hd) or the
+    int8 ``(kq, ks, vq, vs)`` with row scales (B, S_local, NKV), whose
+    first row is the global row ``offset``. Rows at or past ``s_eff`` and
+    rows past each query's position are masked (-1e30). Returns m, l (B,
+    W, NH) and acc (B, W, NH, Hd), fp32, with m the row max clamped at
+    -1e29: a query with no live row in the shard gets m = -1e29, l = 0,
+    acc = 0, as the partial mode of B1/B2 does. The int8 rows fold ``ks``
+    into the logits and ``vs`` into P (l is summed before ``vs``); bf16
+    rows take the logits in the cache type, as the whole-cache version
+    does, and P rounded to it before an fp32 P·V."""
+    b, w, nh, hd = q.shape
+    nkv = layer[0].shape[2]
+    n = max(0, min(layer[0].shape[1], s_eff - offset))
+    if n == 0:
+        return (q.new_full((b, w, nh), -1e29, dtype=torch.float32),
+                q.new_zeros((b, w, nh), dtype=torch.float32),
+                q.new_zeros((b, w, nh, hd), dtype=torch.float32))
+    qg = q.reshape(b, w, nkv, nh // nkv, hd)
+    if len(layer) == 4:
+        kq, ks, vq, vs = (t[:, :n] for t in layer)
+        s = torch.einsum("bwkgh,bskh->bwkgs", qg.float(), kq.float()) * scale
+        s = s * ks.transpose(1, 2)[:, None, :, None, :]
+        vsc = vs.transpose(1, 2)[:, None, :, None, :]
+
+        def pv(p):
+            return torch.einsum("bwkgs,bskh->bwkgh", p * vsc, vq.float())
+    else:
+        ck, cv = (t[:, :n] for t in layer)
+        s = torch.einsum("bwkgh,bskh->bwkgs", qg, ck).float() * scale
+
+        def pv(p):
+            return torch.einsum("bwkgs,bskh->bwkgh", p.to(cv.dtype).float(),
+                                cv.float())
+    cols = offset + torch.arange(n, device=q.device)
+    live = cols[None, None, :] <= posm[:, :, None]                # (B, W, n)
+    s = s.masked_fill(~live[:, :, None, None, :], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True).clamp(min=-1e29)
+    p = torch.exp(s - m).masked_fill(s <= NEG_INF, 0.0)
+    return (m.reshape(b, w, nh), p.sum(dim=-1).reshape(b, w, nh),
+            pv(p).reshape(b, w, nh, hd))
+
+
+def sp_window_attention(q, layer, posm, *, axis_name: str, s_eff: int,
+                        scale: float, dtype) -> torch.Tensor:
+    """Per-shard body of the window attention on a context-sharded grid:
+    :func:`window_attention_partial` over this rank's rows, from its
+    offset along ``axis_name``, then the one online-softmax combine of
+    the decode path (:func:`_combine`: one all-reduce MAX, one SUM).
+    Returns (B, W, NH, Hd) in ``dtype``, the same bits on every rank of
+    the axis. Runs with a mesh installed that binds ``axis_name``."""
+    from .mesh import axis_index
+
+    offset = axis_index(axis_name) * layer[0].shape[1]
+    m, l, acc = window_attention_partial(q, layer, posm, offset, s_eff, scale)
+    return _combine(m, l, acc, axis_name, dtype)
+
+
 def _sp_decode_specs(mesh, batch_axes, context_axis, head_axis):
     """(q_spec, kv_spec, scale_spec, pos_spec) of the decode bodies, JAX's
     layouts: one function so the fp and quant wrappers cannot drift."""

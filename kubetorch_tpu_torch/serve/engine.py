@@ -102,8 +102,11 @@
   (int8, int4, or Mixtral's int8 experts beside int4 attention) is
   replicated by the rules, as in JAX, and its matmuls run on each rank's
   rows (``models.quant``: B3 against the whole packed matrix, int8 leaves
-  dequantized in place). LoRA banks raise on a mesh (ROADMAP Queue A
-  item 10).
+  dequantized in place). LoRA banks serve on a mesh: the banks are plain
+  tensors, whole on every rank; a registration or an unregistration runs
+  at a step the ranks agree on (``at_batch_boundary``); each decode step
+  gathers the rank's own slots' factors, and each delta is added in the
+  layout of the sharded product it joins (``models.lora.lora_proj``).
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
 ignored: ``aot_cache``.
@@ -267,7 +270,10 @@ def _decode_step_impl(params, cache, pos, toks, cfg, freqs_table,
         cache = type(cache)(*(t.to_local() for t in cache))
     # decided once per tree: a plain tree skips the per-layer dequant walk
     quant_w = any(is_quantized(w) for w in params["layers"].values())
-    # each slot's factors of every layer, (B, L, D, R) and (B, L, R, O)
+    # each slot's factors of every layer, (B, L, D, R) and (B, L, R, O);
+    # on a mesh the rank's own slots
+    if grid is not None and aidx is not None:
+        aidx = aidx[grid.b0:grid.b0 + grid.nb]
     slot_lora = gather_slot_adapters(
         {t: (a.transpose(0, 1), b.transpose(0, 1))
          for t, (a, b) in (banks or {}).items()}, aidx, lora_scale, banks)
@@ -890,12 +896,6 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the PyTorch engine")
 
 
-def _not_on_mesh(what: str):
-    return NotImplementedError(
-        f"{what} on a device mesh is not ported to the PyTorch engine "
-        "(ROADMAP Queue A item 10)")
-
-
 def _request_key(req: _Request) -> int:
     """A 62-bit digest of what a request asks for: ranks holding different
     requests under one sequence number part here."""
@@ -1007,8 +1007,8 @@ class GenerationEngine:
     and submits the same requests in the same order; the ranks agree on
     each step (``_StepAgreement``). The mesh is installed around every
     step, admission, chunk and boundary hook, on whichever thread runs
-    them. MoE trees (``MOE_RULES``) and quantized trees serve on a mesh;
-    LoRA banks raise there (ROADMAP Queue A item 10).
+    them. MoE trees (``MOE_RULES``), quantized trees and LoRA adapter
+    banks serve on a mesh.
     """
 
     def __init__(self, params: Dict[str, Any], cfg, *, slots: int = 8,
@@ -1169,8 +1169,6 @@ class GenerationEngine:
         through the decode step every other adapter and the base model
         share. All adapters on one engine share the first registration's
         rank, targets and scale; a freed bank index is reused."""
-        if self._mesh is not None:
-            raise _not_on_mesh("a LoRA adapter bank")
         layers = adapters.get("layers", adapters)
         served = {"wq", "wk", "wv", "wo"}
         extra = set(lora_cfg.targets) - served
@@ -1189,6 +1187,15 @@ class GenerationEngine:
                 raise KeyError(
                     f"adapter missing factors for target {t!r} "
                     f"(have {sorted(layers)})") from None
+        if self._mesh is not None:
+            # every rank's next step reads the bank: install it at a step
+            # the ranks agree on
+            pairs = {t: tuple(_plain(x) for x in ab) for t, ab in pairs.items()}
+            return self.at_batch_boundary(
+                lambda: self._install_adapter(pairs, lora_cfg))
+        return self._install_adapter(pairs, lora_cfg)
+
+    def _install_adapter(self, pairs: Dict[str, tuple], lora_cfg) -> int:
         with self._lock:
             # the config check under the lock: two racing first
             # registrations must not both pass the None check
@@ -1230,7 +1237,15 @@ class GenerationEngine:
         Its factors are zeroed and any request still decoding on it is
         repointed at index 0, so it falls back to the base model
         mid-stream, never onto the next tenant of the index. Queued
-        requests against the id fail at admission through their handle."""
+        requests against the id fail at admission through their handle.
+        On a mesh it runs at a step the ranks agree on, as
+        :meth:`register_adapter` does."""
+        if self._mesh is not None:
+            return self.at_batch_boundary(
+                lambda: self._uninstall_adapter(adapter_id))
+        return self._uninstall_adapter(adapter_id)
+
+    def _uninstall_adapter(self, adapter_id: int) -> bool:
         with self._lock:
             idx = self._adapter_slots.pop(adapter_id, None)
             if idx is None:

@@ -18,7 +18,9 @@ slots at length 0) shares one pass. Rows past a slot's frontier hold stale
 values by design: every round writes its rows before attending, and the
 per-slot causal mask never admits a row not yet written. The window's
 attention is the plain masked einsum over the first ``s_eff`` rows, as in
-JAX.
+JAX; on a grid split over a ``context`` mesh axis, the same math per
+shard and one online-softmax combine
+(``parallel.ring_attention.sp_window_attention``).
 
 Greedy verification is exact per slot: each request's tokens are the
 target's greedy decode of its prompt, whatever the draft proposes and
@@ -44,8 +46,9 @@ from ..models.generate import NEG_INF, ffn_block, init_cache
 from ..models.llama import _rotate, layer_weights, rmsnorm, rope_freqs
 from ..models.lora import gather_slot_adapters, lora_proj
 from ..models.quant import dequant_layer, lm_head_dot
+from ..parallel.ring_attention import sp_window_attention
 from .engine import (GenerationEngine, _Chunking, _decode_block, _MeshGrid,
-                     _not_on_mesh, _plain, _prefill, _prefill_logits,
+                     _plain, _prefill, _prefill_logits,
                      _prefill_suffix, _prefill_suffix_logits, _Sampling,
                      _splice_slot, _zero_rows)
 from .kv_quant import QuantKVCache, quantize_rows
@@ -93,6 +96,23 @@ def _window_attend(q, k, v, layer, bi, posm, mask, s_eff: int, scale: float,
                         cv[:, :s_eff]).reshape(b, w, nh, hd)
 
 
+def _write_held(layer, held, k, v) -> None:
+    """A window's K/V rows into a context shard of one layer's cache, in
+    place: only the rows the shard holds, ``held`` = (slot, window index,
+    local row) index tensors; k/v (B, W, NKV, Hd). An int8 layer
+    quantizes each row as the whole-cache write does."""
+    bsel, wsel, rsel = held
+    k, v = k[bsel, wsel], v[bsel, wsel]
+    if len(layer) == 4:
+        kq, ks, vq, vs = layer
+        kq[bsel, rsel], ks[bsel, rsel] = quantize_rows(k)
+        vq[bsel, rsel], vs[bsel, rsel] = quantize_rows(v)
+        return
+    ck, cv = layer
+    ck[bsel, rsel] = k.to(ck.dtype)
+    cv[bsel, rsel] = v.to(cv.dtype)
+
+
 @torch.no_grad()
 def _grid_ingest(params, cache, blocks, start, true_len, cfg,
                  s_eff: Optional[int] = None, banks=None, aidx=None,
@@ -116,9 +136,14 @@ def _grid_ingest(params, cache, blocks, start, true_len, cfg,
     fp32 einsums (logit columns times ``ks``, probabilities times ``vs``),
     the reference math of the int8 decode step. ``freqs_full``: the RoPE
     table, at least as long as the grid (built here when None). On a mesh
-    (``grid``, the cache's ``serve.engine._MeshGrid``; no live context
-    axis) the params are DTensors, the writes and the attention run on this
-    rank's slots and heads, and the logits come back whole."""
+    (``grid``, the cache's ``serve.engine._MeshGrid``) the params are
+    DTensors, the writes and the attention run on this rank's slots and
+    heads, and the logits come back whole. With the sequence over
+    ``context`` each rank writes only the window rows its shard holds (a
+    window may cross a shard boundary) and attends its own rows from its
+    offset, and one online-softmax combine across the axis gives the
+    whole-cache attention (``parallel.ring_attention.
+    sp_window_attention``): no rank gathers the grid."""
     quant = isinstance(cache, QuantKVCache)
     b, w = blocks.shape
     dev = blocks.device
@@ -135,6 +160,14 @@ def _grid_ingest(params, cache, blocks, start, true_len, cfg,
         freqs = replicate_like(freqs, x)
         local = type(cache)(*(t.to_local() for t in cache))
         mine = slice(grid.b0, grid.b0 + grid.nb)
+        if aidx is not None:
+            aidx = aidx[mine]
+        if grid.ctx:
+            # the window rows this rank's shard holds: (slot, window
+            # index, local row) of each, found once for every layer
+            rows = posm[mine] - grid.r0
+            bsel, wsel = ((rows >= 0) & (rows < grid.nr)).nonzero(as_tuple=True)
+            held = (bsel, wsel, rows[bsel, wsel])
     token_mask = torch.arange(w, device=dev)[None, :] < true_len[:, None]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bi = torch.arange(b, device=dev)[:, None]
@@ -167,6 +200,14 @@ def _grid_ingest(params, cache, blocks, start, true_len, cfg,
         if grid is None:
             attn = _window_attend(q, k, v, tuple(t[i] for t in cache), bi,
                                   posm, mask, s_eff, scale, x.dtype)
+        elif grid.ctx:
+            pl = grid.window
+            q_l, k_l, v_l = (grid.local(t, pl) for t in (q, k, v))
+            layer = tuple(t[i] for t in local)
+            _write_held(layer, held, k_l, v_l)
+            attn = grid.wrap(sp_window_attention(
+                q_l, layer, posm[mine], axis_name="context", s_eff=s_eff,
+                scale=scale, dtype=x.dtype), q, pl)
         else:
             pl = grid.window
             attn = grid.wrap(_window_attend(
@@ -202,11 +243,13 @@ class SpeculativeEngine(GenerationEngine):
     caching (``register_prefix`` prefills both models' prefixes) and
     chunked prefill (``prefill_chunk``: both accumulators advance one chunk
     per step). ``draft_params`` must be on the engine's device and
-    ``draft_cfg`` share the target's vocabulary. On a mesh with no live
-    ``context`` axis both trees are DTensors laid out by the same rules
-    and both grids are split as the plain engine's; a context axis raises
-    (the windows have no per-shard combine yet, ROADMAP Queue A item
-    10)."""
+    ``draft_cfg`` share the target's vocabulary. On a mesh both trees are
+    DTensors laid out by the same rules and both grids are split as the
+    plain engine's; with a live ``context`` axis each rank keeps S/c rows
+    of each grid between rounds: the windows attend through a per-shard
+    partial and one combine (``_grid_ingest``) and the draft's decode
+    block through the partial mode of B1/B2. (JAX lets GSPMD gather the
+    grid for the window forwards.)"""
 
     def __init__(self, params: Dict[str, Any], cfg,
                  draft_params: Dict[str, Any], draft_cfg, *, spec_k: int = 4,
@@ -235,8 +278,6 @@ class SpeculativeEngine(GenerationEngine):
         check_vocab(cfg, draft_cfg)
         super().__init__(params, cfg, **kwargs)
         if self._grid is not None:
-            if "context" in self._mesh.mesh_dim_names:
-                raise _not_on_mesh("speculative decoding with a context axis")
             self._check_mesh_params(draft_params, self._mesh)
         if draft_params["embed"].device != self.device:
             raise ValueError(f"draft params are on "

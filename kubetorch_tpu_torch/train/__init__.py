@@ -8,7 +8,7 @@ from .checkpoint import (Checkpointer, async_save_state, commit_info,
                          restore_state, save_state, train_state_from_tree,
                          train_state_tree, tree_fingerprint)
 from .data import prefetch_to_device
-from .optim import (adam, adamw, chain, clip_by_global_norm,
+from .optim import (adam, adamw, chain, clip_by_global_norm, sgd, trace,
                     warmup_cosine_decay_schedule)
 from .train_step import (STEP_METRICS, TrainState, default_optimizer,
                          init_train_state, make_train_step)
@@ -17,6 +17,6 @@ __all__ = ["Checkpointer", "STEP_METRICS", "TrainState", "adam", "adamw",
            "async_save_state", "chain", "clip_by_global_norm", "commit_info",
            "default_optimizer", "init_train_state", "local_restore",
            "local_save", "make_train_step", "prefetch_to_device",
-           "publish_rollout", "restore_state", "save_state",
+           "publish_rollout", "restore_state", "save_state", "sgd", "trace",
            "train_state_from_tree", "train_state_tree", "tree_fingerprint",
            "warmup_cosine_decay_schedule"]

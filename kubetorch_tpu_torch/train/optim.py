@@ -1,6 +1,7 @@
 """The port's own copy of the optax pieces the JAX train step uses:
-``chain``, ``clip_by_global_norm``, ``adam``, ``adamw`` and
-``warmup_cosine_decay_schedule``, as plain functions on dicts of tensors.
+``chain``, ``clip_by_global_norm``, ``adam``, ``adamw``, ``trace``,
+``sgd`` and ``warmup_cosine_decay_schedule``, as plain functions on dicts
+of tensors.
 
 A transformation is an ``init(params) -> state`` /
 ``update(updates, state, params, inplace=False) -> (updates, state)``
@@ -19,6 +20,9 @@ bits are the same either way. The numerics are optax's:
   param type, bias correction with an int32 count, eps outside the root;
 - ``add_decayed_weights``: decoupled decay, scaled by the learning rate
   with the rest of the update;
+- ``trace``: ``t = g + decay·t`` (the updates are t, or ``g + decay·t``
+  with nesterov), the trace kept in the param's type; ``sgd`` is
+  ``trace`` (only with a momentum), then the learning rate;
 - schedules evaluated at the count *before* it increments, so a warmup
   from 0 gives the first step a learning rate of 0.
 
@@ -49,6 +53,10 @@ class ScaleByAdamState(NamedTuple):
 
 class ScaleByScheduleState(NamedTuple):
     count: torch.Tensor
+
+
+class TraceState(NamedTuple):
+    trace: Any
 
 
 class GradientTransformation(NamedTuple):
@@ -186,6 +194,37 @@ def add_decayed_weights(weight_decay: float = 0.0) -> GradientTransformation:
     return GradientTransformation(lambda params: EmptyState(), update)
 
 
+def identity() -> GradientTransformation:
+    """optax.identity: the updates pass through, the state is empty."""
+    def update(updates, state, params=None, inplace=False):
+        return updates, state
+
+    return GradientTransformation(lambda params: EmptyState(), update)
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """optax.trace: the momentum trace ``t = g + decay·t``; the updates are
+    the new trace, or ``g + decay·t`` again with ``nesterov``. In place,
+    the trace is written over the old one and the updates over the
+    incoming updates, never onto the trace itself."""
+    def init(params):
+        return TraceState(trace=tree_map(torch.zeros_like, params))
+
+    def update(updates, state, params=None, inplace=False):
+        new_trace = _emit(lambda t, g: g + decay * t, inplace, state.trace,
+                          updates)
+        if nesterov:
+            updates = _emit(lambda g, t: g + decay * t, inplace, updates,
+                            new_trace)
+        elif inplace:
+            updates = _emit(lambda g, t: t, inplace, updates, new_trace)
+        else:
+            updates = new_trace
+        return updates, TraceState(trace=new_trace)
+
+    return GradientTransformation(init, update)
+
+
 def scale_by_learning_rate(learning_rate: Union[float, Schedule]
                            ) -> GradientTransformation:
     """Multiply by -lr; a schedule is read at its count before the count
@@ -224,6 +263,16 @@ def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9,
     return chain(scale_by_adam(b1, b2, eps, eps_root, mu_dtype),
                  add_decayed_weights(weight_decay),
                  scale_by_learning_rate(learning_rate))
+
+
+def sgd(learning_rate: Union[float, Schedule],
+        momentum: Optional[float] = None,
+        nesterov: bool = False) -> GradientTransformation:
+    """optax.sgd: ``trace`` when a momentum is given (else the identity),
+    then the learning rate; the state nests as optax's, (TraceState or
+    EmptyState, EmptyState)."""
+    first = identity() if momentum is None else trace(momentum, nesterov)
+    return chain(first, scale_by_learning_rate(learning_rate))
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,

@@ -200,9 +200,9 @@ def test_unported_engine_knobs_raise(params, ctor_kw):
     """``aot_cache`` is not ported. A mesh is, for quantized weight trees
     too: a quantized tree of plain tensors meets the mesh's layout check
     as any plain tree does (``ValueError``: every param must be a DTensor
-    on the mesh), not a refusal of the feature. What still raises on a
-    mesh (LoRA banks, ROADMAP Queue A item 10) is held on a real mesh in
-    ``tests/test_torch_mesh_serve.py``."""
+    on the mesh), not a refusal of the feature. LoRA banks on a real mesh
+    are held against the plain engine in ``tests/test_torch_mesh_serve.py``
+    and against JAX in ``tests/test_torch_mesh_lora_spec.py``."""
     from kubetorch_tpu_torch.models.quant import quantize_params
     raised = NotImplementedError
     if "mesh" in ctor_kw:
@@ -248,3 +248,33 @@ def test_params_on_another_device_raise(params):
     meta = {**params, "embed": params["embed"].to("meta")}
     with pytest.raises(ValueError, match="params are on"):
         GenerationEngine(meta, cfg(), slots=1, max_len=16, device="cpu")
+
+
+def test_a_live_handle_holds_its_engines_grid(params):
+    """A request handle references its engine, and with it the grid: a
+    harness that keeps a handle (a loop variable) past ``del engine``
+    keeps the grid's bytes allocated while the next engine allocates its
+    own. This was the mesh engine's 2.14 GB "lower peak" on the card: the
+    engine run first outlived its run through one handle. With the
+    handles gone, the grid's bytes are freed."""
+    import gc
+    import weakref
+
+    eng = GenerationEngine(params, cfg(), slots=2, max_len=32,
+                           prefill_buckets=(8,), device="cpu")
+    hs = [eng.submit(p, max_new_tokens=2) for p in (PROMPTS[0], PROMPTS[2])]
+    while eng.step():
+        pass
+    for h in hs:
+        h.result(timeout=0)
+    grid = [weakref.ref(t) for t in eng._cache]
+    c = cfg()
+    # K and V: (layers, slots, max_len, KV heads, head dim) fp32 each
+    assert sum(r().nbytes for r in grid) == 2 * (
+        c.n_layers * 2 * 32 * c.n_kv_heads * c.head_dim * 4)
+    del eng, hs
+    gc.collect()
+    assert all(r() is not None for r in grid)    # the loop variable h
+    del h
+    gc.collect()
+    assert all(r() is None for r in grid)

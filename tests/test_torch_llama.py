@@ -239,6 +239,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    if "_build" not in f.relative_to(pkg).parts)
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    # every module of the package, the newest included
+    for module in ("models/resnet.py", "parallel/ring_attention.py",
+                   "serve/spec_engine.py"):
+        assert pkg / module in files, module
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "kubetorch_tpu", "flax",

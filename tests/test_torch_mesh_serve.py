@@ -41,10 +41,9 @@ different times give the same tokens on every rank, a cancel asked on
 one rank retires the request on all at the same step, a rank holding a
 different request raises on every rank); the request features (prefix,
 auto_prefix, chunked prefill, penalties, logit_bias, seeded sampling) on
-the context mesh against the plain engine, and what raises on a mesh
-(LoRA banks); and a world of 1, whose mesh engine's tokens, logprobs and
-first-token logits are bitwise the plain engine's, on a plain tree and on
-an int8 tree.
+the context mesh against the plain engine; and a world of 1, whose mesh engine's tokens, logprobs
+and first-token logits are bitwise the plain engine's, on a plain tree, on
+an int8 tree and with LoRA banks, where only plain params raise.
 """
 
 import json
@@ -451,14 +450,36 @@ def w1(out, rank):
             pass
         qruns[key] = ([h.result(timeout=0) for h in hs], [h.logprobs for h in hs])
     res["quantized_equal"] = qruns["plain"] == qruns["mesh"]
-    # what raises on a mesh
+    # LoRA banks on a mesh: base beside two adapters, bitwise the plain
+    # engine with the same banks
     from kubetorch_tpu_torch.models.lora import LoraConfig, lora_init
-    eng = GenerationEngine(sharded, c, slots=2, max_len=32, device="cpu", mesh=mesh)
-    lcfg = LoraConfig(rank=2, targets=("wq",))
+    lcfg = LoraConfig(rank=2)
+    adapters = []
+    for seed in (1, 2):
+        ad = lora_init(params, lcfg, seed=seed)
+        gen = torch.Generator().manual_seed(seed + 10)
+        ad["layers"] = {k: v if k.endswith("__a") else
+                        0.05 * torch.randn(v.shape, generator=gen)
+                        for k, v in ad["layers"].items()}
+        adapters.append(ad)
+    lruns = {}
+    for key, p, kw in (("plain", params, {}), ("mesh", sharded, {"mesh": mesh})):
+        eng = GenerationEngine(p, c, slots=4, max_len=32, prefill_buckets=(4,),
+                               device="cpu", **kw)
+        ida, idb = (eng.register_adapter(ad, lcfg) for ad in adapters)
+        hs = [eng.submit(PROMPTS[0], max_new_tokens=N),
+              eng.submit(PROMPTS[1], max_new_tokens=N, adapter_id=ida),
+              eng.submit(PROMPTS[0], max_new_tokens=N, adapter_id=idb)]
+        while eng.step():
+            pass
+        lruns[key] = ([h.result(timeout=0) for h in hs], [h.logprobs for h in hs])
+    res["lora_equal"] = lruns["plain"] == lruns["mesh"]
+    res["lora_base_equal"] = lruns["mesh"][0][0] == runs["plain"][0][0]
+    res["lora_adapted"] = lruns["mesh"][0][2] != lruns["mesh"][0][0]
+    # what raises on a mesh
     raised = {}
     for name, fn in (
-            ("lora", lambda: eng.register_adapter(lora_init(params, lcfg, seed=1), lcfg)),
-            ("plain_params", lambda: GenerationEngine(params, c, device="cpu", mesh=mesh))):
+            ("plain_params", lambda: GenerationEngine(params, c, device="cpu", mesh=mesh)),):
         try:
             fn()
             raised[name] = None
@@ -889,15 +910,19 @@ def test_world_of_one_is_the_plain_engine_bitwise(worlds):
 
 
 def test_what_raises_on_a_mesh(worlds):
-    """LoRA banks raise on a mesh, naming ROADMAP Queue A item 10, and
-    plain params raise; a quantized tree serves, its tokens and logprobs
-    those of the plain engine on the same tree."""
+    """Only plain params raise on a mesh. A quantized tree serves, its
+    tokens and logprobs those of the plain engine on the same tree, and
+    so do LoRA banks: base beside two adapters, tokens and logprobs
+    bitwise the plain engine with the same banks, the base request the
+    bank-less engine's (the adapters' parity with JAX on larger meshes is
+    in ``tests/test_torch_mesh_lora_spec.py``)."""
     r = worlds["w1"][0]
     raised = r["raised"]
-    kind, msg = raised["lora"]
-    assert kind == "NotImplementedError" and "ROADMAP Queue A item 10" in msg
+    assert list(raised) == ["plain_params"]
     assert raised["plain_params"][0] == "ValueError"
     assert r["quantized_equal"] is True
+    assert r["lora_equal"] is True
+    assert r["lora_base_equal"] is True and r["lora_adapted"] is True
 
 
 # -- MoE and quantized trees on a mesh -------------------------------------
