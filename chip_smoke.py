@@ -162,8 +162,8 @@
    speculative phase on these weights with the bf16 1B draft: B3 also in
    every verify window (72 rows), the window's logits against the plain
    int8 decode step (B2).
-6. Serves Mixtral-8x7B at full width and depth (random weights from a
-   seed, built on the card one matrix at a time in quantize_params_int4's
+6. Serves Mixtral-8x7B at full width and CUT_LAYERS (8) of its 32
+   layers (random weights from a seed, built on the card one matrix at a time in quantize_params_int4's
    layout: int8 experts, int4 attention and head) with an int8 KV cache:
    the engine phases' warm-up and 12 requests on 8 slots (decode through
    the expert dispatch), exact launch counts (A1 per prefill, B3 on the
@@ -299,7 +299,19 @@
    fake process groups, no kernel launched; the 1B report's params +
    opt_state bytes equal the live mesh state's exactly, and its predicted
    peak is within HBM_AUDIT_RATIO of one warm mesh step's
-   torch.cuda.max_memory_allocated.
+   torch.cuda.max_memory_allocated. Last, a serving replica's cold start
+   ("cold_start", drive_cold_start): Llama-3.2-1B at full width and depth
+   (bf16, ~3 GB from COLD_START_SEED) saved once, then two fresh pods,
+   each a process on its own copy of kubetorch_tpu_torch/ with no _build/
+   and its own empty compile-cache root over the store stand-in, booting
+   through warm_template.cold_boot_main: pod A misses, builds flash_fwd
+   and decode_attention with nvcc and publishes locally and to the store;
+   pod B hits from the store with no nvcc run. Then the warm template (a
+   third copy) forks two replicas, one after the other, over pod B's warm
+   root: import 0.0, hits, no nvcc. Every boot's greedy tokens equal an
+   in-process engine's on the same weights, its A1/B1 launches equal what
+   its warm passes, prefill and decode steps imply, and no segment the
+   template staged is left in /dev/shm; each boot's phases printed.
 8. Prints the speculative and training phases' numbers and the script's
    wall time, one
    JSON line of per-kernel numbers, the card line, and as the last line
@@ -333,9 +345,10 @@ MAX_NEW = 32
 # the depth of the paths cut to keep the whole script within its time, width
 # kept: the int4 Llama-3-8B engine with its features, LoRA and speculation,
 # the mesh engines of Llama-3-8B ("mesh_serve") and of Mixtral ("moe_mesh"),
-# and the pipelines (Llama-3.2-1B's shape, of its 16 layers). The bf16
-# Llama-3-8B engine with its features, LoRA, fine-tune, rollout and
-# speculation, "hf_openai" and Mixtral's engine serve all 32 layers
+# the pipelines (Llama-3.2-1B's shape, of its 16 layers) and, since the
+# "cold_start" phase, Mixtral's engine ("moe"). The bf16 Llama-3-8B engine
+# with its features, LoRA, fine-tune, rollout and speculation and
+# "hf_openai" serve all 32 layers
 CUT_LAYERS = 8
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "quant_matmul")
 # the engine's prefill buckets (the last is max_len) and a ragged length
@@ -546,6 +559,12 @@ PIPE_GRAD_REL_L2 = 5e-2
 DATA_PLANE_FLAG, DATA_PLANE_SPEC_ENV = "--data-plane-rank", "KT_SMOKE_DATA_PLANE"
 DATA_PLANE_LAYERS, DATA_PLANE_SEED = 2, 5
 DATA_PLANE_KEY, DATA_PLANE_DIR = "smoke/llama3-8b", "data_plane"
+# the "cold_start" phase: Llama-3.2-1B, bf16, full width and depth; the
+# engine every boot builds, the probe each serves
+COLD_START_SEED, COLD_START_DIR = 20, "cold_start"
+COLD_START_ENGINE = dict(slots=4, max_len=512, prefill_buckets=(128, 256, 512))
+COLD_START_PROBE, COLD_START_NEW = 40, 8
+COLD_START_LIBS = ("decode_attention", "flash_fwd")
 # the memory audit ("hbm_audit", run in the mesh rank): Llama-3-8B's step
 # audited on an 8-way fsdp mesh at this batch x sequence, and the bounds of
 # a measured step's peak over the 1B audit's predicted peak: narrow enough
@@ -595,10 +614,10 @@ LORA_RANK, LORA_ALPHA, LORA_B_STD = 16, 32.0, 0.05
 LORA_PROMPTS = (40, 100, 200, 300, 64, 128, 500, 90)
 LORA_TIMED_STEPS = 6
 LORA_PREFIX = 300
-# the MoE phase: Mixtral-8x7B at full width and depth in the int4/int8
-# serving layout, the engine phases' grid with an int8 KV cache, then a
-# 2-slot engine on the same weights, whose decode takes the K-expert
-# gather (2 x 2 x 2 <= 8 experts) where 8 slots take the dispatch
+# the MoE phase: Mixtral-8x7B at full width and CUT_LAYERS of 32 layers in
+# the int4/int8 serving layout, the engine phases' grid with an int8 KV
+# cache, then a 2-slot engine on the same weights, whose decode takes the
+# K-expert gather (2 x 2 x 2 <= 8 experts) where 8 slots take the dispatch
 MOE_GATHER_PROMPTS = (40, 300, 700, 1500)
 # the training phases of the LoRA and MoE families, each on one seeded
 # batch of TRAIN_B x TRAIN_S fed through prefetch_to_device, TRAIN_STEPS
@@ -3236,7 +3255,8 @@ def check_moe_ffn_forms(torch, engine_mod, eng, cfg, prompts):
 
 
 def drive_moe(torch, ops_attn, ops_dec, ops_q4, card):
-    """Mixtral-8x7B at full width and depth through GenerationEngine, int8
+    """Mixtral-8x7B at full width and CUT_LAYERS layers through
+    GenerationEngine, int8
     expert banks beside int4 attention and head and an int8 KV cache: the
     engine phases' warm-up and 12 requests on 8 slots (decode through the
     dispatch), then 4 requests on 2 slots (decode through the gather)."""
@@ -3246,7 +3266,7 @@ def drive_moe(torch, ops_attn, ops_dec, ops_q4, card):
     from kubetorch_tpu_torch.serve import engine as engine_mod
 
     t_phase = time.perf_counter()
-    cfg = MoeConfig.mixtral_8x7b()
+    cfg = MoeConfig.mixtral_8x7b(n_layers=CUT_LAYERS)
     params = mixtral_init_quantized(torch, cfg, seed=0)
     torch.cuda.synchronize()
     sizes = quantized_bytes(params)
@@ -3255,7 +3275,8 @@ def drive_moe(torch, ops_attn, ops_dec, ops_q4, card):
                 quantize_kv=True, device="cuda")
     eng = GenerationEngine(params, cfg, slots=8, **grid)
     cache_gb = sum(t.numel() * t.element_size() for t in eng._cache) / 1e9
-    print(f"moe: Mixtral-8x7B ({cfg.param_count()} params; experts int8, "
+    print(f"moe: Mixtral-8x7B, {cfg.n_layers} of 32 layers "
+          f"({cfg.param_count()} params; experts int8, "
           f"attention and head int4 group {Q4_GROUP}) initialised in "
           f"{time.perf_counter() - t_phase:.2f}s; weight_gb={weight_gb} "
           f"cache_gb={cache_gb} (int8 grid, 8 slots x 2048) allocated_gb="
@@ -6921,6 +6942,208 @@ def drive_data_plane(card):
     return rec
 
 
+def cold_start_copy(root, name):
+    """A copy of kubetorch_tpu_torch/ under root/name without _build/ (a
+    fresh pod's checkout); returns root/name, the directory to run from."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    dest = os.path.join(root, name)
+    shutil.copytree(os.path.join(here, "kubetorch_tpu_torch"),
+                    os.path.join(dest, "kubetorch_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    return dest
+
+
+def cold_boot_pod(label, cwd, spec, idx, timeout=600):
+    """One fresh pod: ``python -m kubetorch_tpu_torch.serving.warm_template
+    --cold`` run from ``cwd`` (its own copy of the package). Fails unless it
+    exits 0; returns its record (cold_<idx>.json)."""
+    spec_path = os.path.join(cwd, f"spec_{idx}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    log_path = os.path.join(cwd, "pod.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubetorch_tpu_torch.serving.warm_template",
+             "--cold", spec_path, str(idx), repr(time.time())],
+            cwd=cwd, env=dict(os.environ, PYTHONPATH=cwd), stdout=log,
+            stderr=subprocess.STDOUT)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            fail(f"cold_start: {label} exited {proc.returncode}: "
+                 f"{f.read()[-3000:]}")
+    with open(os.path.join(spec["result_dir"], f"cold_{idx}.json")) as f:
+        return json.load(f)
+
+
+def wait_replica(sup, result_dir, idx, timeout=300):
+    """A forked replica's record (replica_<idx>.json); fails if it is not
+    ok or does not come within ``timeout``."""
+    path = os.path.join(result_dir, f"replica_{idx}.json")
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            fail(f"cold_start: replica {idx} wrote nothing in {timeout}s; "
+                 f"template log: {sup.log_tail()}")
+        time.sleep(0.05)
+    with open(path) as f:
+        rec = json.load(f)
+    if not rec["ok"]:
+        fail(f"cold_start: replica {idx}: {rec['error']}; template log: "
+             f"{sup.log_tail()}")
+    return rec
+
+
+def check_boot(label, rec, want_tokens, cfg, flash_buckets):
+    """A boot's probe tokens against the in-process engine's, and its A1
+    and B1 launches against its warm passes (one prefill per bucket through
+    A1 where it flashes, one decode block), its probe's prefill (its bucket
+    flashes) and its decode steps, L each."""
+    if rec["tokens"] != want_tokens:
+        fail(f"cold_start: {label} tokens {rec['tokens']} != the in-process "
+             f"engine's {want_tokens}")
+    L, c = cfg.n_layers, rec["counts"]
+    want = dict(flash_fwd=L * (flash_buckets + 1), decode_attention=L * (
+        COLD_START_ENGINE.get("decode_block", 1) + rec["decode_steps"]))
+    got = {k: c[k] for k in want}
+    if got != want or c["decode_attention_quant"] or c["q4_matmul"]:
+        fail(f"cold_start: {label} launches {c}, expected {want}")
+
+
+def drive_cold_start(card):
+    """A serving replica's cold start on the card ("cold_start"): the
+    module docstring's item 7. Returns the phase's record: each boot's
+    phases, cache counts, nvcc runs and launches."""
+    import shutil
+
+    import torch
+
+    from kubetorch_tpu_torch.models.generate import _flash_prefill_wanted
+    from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
+    from kubetorch_tpu_torch.serve import GenerationEngine
+    from kubetorch_tpu_torch.serving import warm_template as wt
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, COLD_START_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = LlamaConfig.llama3_1b()
+    params = llama_init(cfg, seed=COLD_START_SEED, device="cuda")
+    probe = np.random.default_rng(COLD_START_SEED).integers(
+        0, cfg.vocab_size, COLD_START_PROBE).tolist()
+    eng = GenerationEngine(params, cfg, device="cuda", **COLD_START_ENGINE)
+    want = eng.generate(probe, max_new_tokens=COLD_START_NEW)
+    eng.stop()
+    flash_buckets = sum(_flash_prefill_wanted(cfg, b, torch.device("cuda"))
+                        for b in eng._buckets)
+    if not _flash_prefill_wanted(cfg, eng._buckets[0], torch.device("cuda")):
+        fail("cold_start: the probe's bucket does not take the flash branch")
+    del eng
+    t = time.perf_counter()
+    weights = os.path.join(root, "weights.npy")
+    wt.save_weights(weights, params)
+    save_s = time.perf_counter() - t
+    nbytes = sum(x.numel() * x.element_size() for x in
+                 [params["embed"], params["lm_head"], params["final_norm"],
+                  *params["layers"].values()])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(root, "out")
+    spec = dict(weights=weights, model={"kind": "llama3-1b"}, device="cuda",
+                engine=COLD_START_ENGINE, probe_prompt=probe,
+                probe_tokens=COLD_START_NEW, result_dir=out)
+    store = _StandInStore()
+    sup = None
+    seen = []
+    # the template stages its segment while the pods boot (it runs no torch
+    # op); it forks only once pod B has filled the root the forks read
+    spawner = ThreadPoolExecutor(max_workers=1)
+    template = spawner.submit(
+        wt.TemplateSupervisor,
+        dict(spec, aot_root=os.path.join(root, "aot-pod_b"), chaos=""),
+        timeout=300.0, cwd=cold_start_copy(root, "template"))
+    try:
+        pods = {}
+        for idx, label in enumerate(("pod_a", "pod_b")):
+            cwd = cold_start_copy(root, label)
+            pods[label] = cold_boot_pod(label, cwd, dict(
+                spec, aot_root=os.path.join(root, f"aot-{label}"),
+                aot_store_url=store.url), idx)
+        sup = template.result()
+        seen.append(sup.segment_name)
+        forks = {}
+        for idx in range(2):
+            if not sup.fork(idx).get("ok"):
+                fail(f"cold_start: fork {idx} refused")
+            forks[f"fork_{idx}"] = wait_replica(sup, out, idx)
+        template_respawns = sup.respawns
+    finally:
+        if sup is None:
+            try:
+                sup = template.result(timeout=330)
+            except Exception:  # noqa: BLE001 — the phase is failing anyway
+                pass
+        if sup is not None:
+            sup.shutdown()
+            seen.append(sup.segment_name)
+        spawner.shutdown()
+        store.close()
+    # the template's segment names carry its pid and a random suffix: this
+    # run's alone, whatever else shares /dev/shm
+    left = [n for n in seen if n and os.path.exists(f"/dev/shm/{n}")]
+    shutil.rmtree(root, ignore_errors=True)
+    if left:
+        fail(f"cold_start: segments left in /dev/shm: {left}")
+    if template_respawns:
+        fail(f"cold_start: the template was respawned {template_respawns} "
+             "times")
+    boots = dict(pods, **forks)
+    for label, rec in boots.items():
+        check_boot(label, rec, want, cfg, flash_buckets)
+    # pod A misses, builds and publishes each library; pod B hits from the
+    # store, the forks from pod B's root; only pod A runs nvcc
+    n = len(COLD_START_LIBS)
+    signatures = len(COLD_START_ENGINE["prefill_buckets"]) + 1
+    for label, want_aot, want_runs in (
+            ("pod_a", dict(miss=n, publish=n, store_publish=n), n),
+            ("pod_b", dict(store_hit=n, hit=n), 0),
+            ("fork_0", dict(hit=n), 0), ("fork_1", dict(hit=n), 0)):
+        rec = boots[label]
+        want_aot = dict(want_aot, executables=signatures)
+        if rec["aot"] != want_aot or rec["counts"]["nvcc_runs"] != want_runs:
+            fail(f"cold_start: {label} counts {rec['aot']}, nvcc runs "
+                 f"{rec['counts']['nvcc_runs']}: want {want_aot} and "
+                 f"{want_runs}")
+    a, b = pods["pod_a"], pods["pod_b"]
+    for label in forks:
+        if boots[label]["phases"]["import"] != 0.0:
+            fail(f"cold_start: {label} paid import "
+                 f"{boots[label]['phases']['import']}s")
+    for label, rec in boots.items():
+        print(f"cold_start: {label} phases {json.dumps(rec['phases'])} total "
+              f"{rec['total_s']:.3f}s aot {rec['aot']} nvcc runs "
+              f"{rec['counts']['nvcc_runs']} card={card}", flush=True)
+    print(f"cold_start: compile_or_cache pod A (miss, nvcc) "
+          f"{a['phases']['compile_or_cache']:.3f}s vs pod B (store hit) "
+          f"{b['phases']['compile_or_cache']:.3f}s; weights {nbytes} bytes "
+          f"saved in {save_s:.2f}s card={card}", flush=True)
+    return dict(weights_bytes=nbytes, save_s=save_s,
+                boots={k: dict(phases=r["phases"], total_s=r["total_s"],
+                               aot=r["aot"], nvcc_runs=r["counts"]["nvcc_runs"],
+                               decode_steps=r["decode_steps"],
+                               launches={n: r["counts"][n]
+                                         for n in COLD_START_LIBS})
+                       for k, r in boots.items()},
+                wall_s=time.perf_counter() - t_phase)
+
+
 def drive_pipe(card):
     """Pipeline parallelism ("pipe"): pipe_rank as a world of 1 (run_rank),
     then PIPE_RANKS ranks of pipe_ranks on the card (spawn_ranks). Returns
@@ -7587,6 +7810,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     data_plane = drive_data_plane(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold_start = drive_cold_start(card)
+    cold_n = {k: r["launches"] for k, r in cold_start["boots"].items()}
     pipe_n = {"world_of_one": pipe["world_of_one"]["launches"],
               "ranks": pipe["ranks"]["launches"]}
     sl = mesh_serve["spec_lora"]["runs"]
@@ -7610,6 +7837,8 @@ def main() -> None:
              rollout=dict(launches=rollout_n["flash_fwd"]),
              checkpoint=dict(launches=checkpoint_n[0]),
              hf_openai=dict(launches=hf_n["flash_fwd"]),
+             cold_start=dict(launches={k: n["flash_fwd"]
+                                       for k, n in cold_n.items()}),
              vit=dict(launches=vit["launches"][0],
                       launches_forward=vit["launches_forward"],
                       per_forward=vit["per_forward"],
@@ -7649,6 +7878,8 @@ def main() -> None:
                                        lora_train["serve"].items()}),
              rollout=dict(launches=rollout_n["decode_attention"]),
              hf_openai=dict(launches=hf_n["decode_attention"]),
+             cold_start=dict(launches={k: n["decode_attention"]
+                                       for k, n in cold_n.items()}),
              engine_features=dict(launches=feat_n["decode_attention"]),
              lora=dict(launches=lora_n["decode_attention"]),
              spec=dict(launches=spec_n["spec"]["decode_attention"]),
@@ -7742,6 +7973,7 @@ def main() -> None:
     print(f"resnet: {json.dumps(resnet)} card={card}", flush=True)
     print(f"pipe: {json.dumps(pipe)} card={card}", flush=True)
     print(f"data_plane: {json.dumps(data_plane)} card={card}", flush=True)
+    print(f"cold_start: {json.dumps(cold_start)} card={card}", flush=True)
     print(f"hbm_audit: {json.dumps(mesh['hbm_audit'])} card={card}",
           flush=True)
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -1,6 +1,7 @@
 """Typed exceptions of the port, copies of their counterparts in
 ``kubetorch_tpu/exceptions.py`` (``KubetorchError``, ``RolloutError``,
-``StaleStageEpochError``, the data store's ``DataStoreError``,
+``StaleStageEpochError``, the compile cache's ``AOTCacheMissError`` and
+``AOTCacheCorruptError``, the data store's ``DataStoreError``,
 ``StoreFullError``, ``RingEpochMismatch`` and ``DataCorruptionError``, and
 ``CircuitOpenError``), with the same names, attributes and message texts,
 so a caller can handle either package's refusal alike.
@@ -64,6 +65,41 @@ class StaleStageEpochError(KubetorchError):
         self.stage = stage
         self.epoch = epoch
         self.current_epoch = current_epoch
+
+
+class AOTCacheMissError(KubetorchError):
+    """The compile cache (``serve/aot_cache.py``) holds no entry for this
+    key and name: a key never built, or one whose fields moved (a torch or
+    CUDA upgrade, another card, an edited kernel source, a bucket change).
+    Always recoverable: the caller builds the library fresh and publishes
+    it, so the fleet pays each build once per distinct key. ``reason``
+    tells ``absent`` (never built) from ``incompatible`` (the name exists
+    under another key digest)."""
+
+    def __init__(self, message: str = "AOT compile cache miss",
+                 key: Optional[str] = None, name: Optional[str] = None,
+                 reason: str = "absent"):
+        super().__init__(message)
+        self.key = key
+        self.name = name
+        self.reason = reason
+
+
+class AOTCacheCorruptError(AOTCacheMissError):
+    """A cached library failed its content check: its blake2b does not
+    match the sidecar's, or the sidecar is unreadable. A miss all the same
+    (the caller rebuilds and republishes), counted apart
+    (``kt_aot_cache_total{result="corrupt"}``) because it means bit rot or a
+    torn write, never a version skew. The hash check runs before the
+    library is ever loaded."""
+
+    def __init__(self, message: str = "AOT cache entry corrupt",
+                 key: Optional[str] = None, name: Optional[str] = None,
+                 expected: Optional[str] = None,
+                 actual: Optional[str] = None):
+        super().__init__(message, key=key, name=name, reason="corrupt")
+        self.expected = expected
+        self.actual = actual
 
 
 class DataStoreError(KubetorchError):

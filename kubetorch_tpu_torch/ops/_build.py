@@ -8,7 +8,11 @@ a hash of the source, every header in ``csrc/`` (``*.cuh``, included with
 unchanged one loads at once. The build runs at first use, never at import;
 ``load`` is the one entry, and callers that need several libraries at once
 (``chip_smoke.py``) call it from several threads, one ``nvcc`` each. No
-``nvcc`` or a failed build raises: there is no fallback.
+``nvcc`` or a failed build raises: there is no fallback. ``build`` is the
+one path that compiles, and counts its ``nvcc`` runs on
+``build.nvcc_runs``. ``install`` puts a library that the compile cache
+(``serve/aot_cache.py``) handed over, its bytes already checked, where
+``load`` finds it, so a pod that hits the cache loads with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -57,6 +61,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def sources() -> list:
+    """The names of every ``csrc/*.cu``, sorted: the libraries ``load``
+    builds."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     out = library_path(name)
@@ -68,12 +78,38 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-                               str(CSRC / f"{name}.cu")],
-                              capture_output=True, text=True)
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
+        with _lock:
+            build.nvcc_runs += 1
+        proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+build.nvcc_runs = 0
+
+
+def install(name: str, data: bytes) -> Path:
+    """Put ``data``, a library built from ``csrc/<name>.cu`` as it stands,
+    at ``library_path(name)``, unless the file there holds those bytes
+    already. Written to a private name, then renamed: a process that
+    loaded the old file keeps its mapping, and no reader sees half a
+    library."""
+    out = library_path(name)
+    if out.exists() and out.read_bytes() == data:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -1,8 +1,9 @@
 """Serving: the continuous-batching generation engine, weight quantization
 for it, its int8 KV cache, speculative decoding (one request, and the
 engine with a draft model), the session binder that keeps a session's
-prompt resident as a cached prefix, and the live weight rollout that swaps
-published weights into a running engine; and the OpenAI-compatible
+prompt resident as a cached prefix, the live weight rollout that swaps
+published weights into a running engine, and the compile cache a replica
+boots through (``aot_cache``); and the OpenAI-compatible
 surface over an engine (``openai_api``, loaded on first use: its HTTP
 shell needs aiohttp, which engine users never do)."""
 

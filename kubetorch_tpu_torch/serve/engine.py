@@ -78,8 +78,13 @@
   stepping thread between decode batches (the one safe point for a live
   weight swap, ``serve/rollout.py``); ``feedback_sink`` receives one
   summary per retired request; ``__kt_metrics__`` is the pod scrape's
-  gauges and ``aot_stats`` the (empty) compile-cache counts, as in the
-  JAX engine.
+  gauges and ``aot_stats`` the compile cache's counts, as in the JAX
+  engine.
+- **Compile cache.** With ``aot_cache=`` (``serve/aot_cache.py``) the
+  engine resolves the kernel libraries its passes launch through the
+  cache at construction (a hit loads with no ``nvcc``) and runs one
+  prefill per bucket and one decode block (``warm_engine``); on a mesh
+  the cache is ignored, as in JAX.
 
 - **On a device mesh.** With ``mesh=`` (or the ambient mesh of
   ``parallel.mesh_context.use_mesh`` at construction) the params are
@@ -107,9 +112,6 @@
   at a step the ranks agree on (``at_batch_boundary``); each decode step
   gathers the rank's own slots' factors, and each delta is added in the
   layout of the sharded product it joins (``models.lora.lora_proj``).
-
-Not ported yet, and raising ``NotImplementedError`` rather than being
-ignored: ``aot_cache``.
 """
 
 from __future__ import annotations
@@ -892,10 +894,6 @@ def _with_index(bank: torch.Tensor, idx: int, value) -> torch.Tensor:
     return out
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch engine")
-
-
 def _request_key(req: _Request) -> int:
     """A 62-bit digest of what a request asks for: ranks holding different
     requests under one sequence number part here."""
@@ -1020,8 +1018,6 @@ class GenerationEngine:
                  decode_block: int = 1, auto_prefix: bool = False,
                  prefill_chunk: Optional[int] = None, aot_cache=None,
                  mesh=None, device=None):
-        if aot_cache is not None:
-            raise _not_ported("aot_cache")
         # the ambient mesh is thread-local: captured here and installed
         # again around every pass, on whichever thread runs it
         from ..parallel.mesh_context import current_mesh
@@ -1059,6 +1055,7 @@ class GenerationEngine:
                                 for b in prefill_buckets} | {self.max_len})
         # the int8 grid (serve.kv_quant): rows quantize at the splice and
         # at each decode step's write
+        self.quantize_kv = bool(quantize_kv)
         self._grid: Optional[_MeshGrid] = None
         self._agree: Optional[_StepAgreement] = None
         if self._mesh is not None:
@@ -1130,6 +1127,14 @@ class GenerationEngine:
         self._tokens = self._steps = 0
         self._ttfts = deque(maxlen=256)
         self._t0 = time.monotonic()
+        # the compile cache: every library the passes launch resolved
+        # (built on a miss) and the passes warmed, the table naming them.
+        # A mesh engine keeps the lazy builds, as JAX keeps its traced jits
+        self._aot_cache = aot_cache
+        self._aot_exec: Dict[tuple, tuple] = {}
+        if aot_cache is not None and self._mesh is None:
+            from .aot_cache import warm_engine
+            self._aot_exec = warm_engine(self, aot_cache)
 
     @staticmethod
     def _check_mesh_params(params, mesh) -> None:
@@ -1943,9 +1948,14 @@ class GenerationEngine:
     # -- introspection ------------------------------------------------------
 
     def aot_stats(self) -> Dict[str, int]:
-        """Compile-cache counts, as the JAX engine reports them: this
-        engine takes no ``aot_cache``, so only ``executables``, 0."""
-        return {"executables": 0}
+        """Compile-cache lookup counts for this engine's warm-up
+        (``hit``/``miss``/``incompatible``/``corrupt``/``publish``…, the
+        local mirror of ``kt_aot_cache_total``, one per library), plus the
+        number of signatures in the warm table, as the JAX engine reports
+        them. Empty counts when the engine was built without a cache."""
+        out = dict(self._aot_cache.counts) if self._aot_cache else {}
+        out["executables"] = len(self._aot_exec)
+        return out
 
     def stats(self) -> EngineStats:
         dt = max(time.monotonic() - self._t0, 1e-9)

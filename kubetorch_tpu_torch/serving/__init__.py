@@ -9,7 +9,10 @@ counterparts of ``kubetorch_tpu/serving``'s device-facing helpers:
 - ``metrics``: the card's memory gauges (``gpu_gauges``), read only when
   the process has already brought CUDA up;
 - ``profile``: a ``torch.profiler`` capture around a call or for a
-  duration, exported as a Chrome trace.
+  duration, exported as a Chrome trace;
+- ``warm_template`` and ``shm_ring``: a replica's cold start, a template
+  process that stages the weights in one shared segment once and forks
+  replicas that boot through the compile cache (``serve/aot_cache.py``).
 
 Nothing here is imported by the fabric itself (its pod server is the JAX
 package's); user code in a rank calls these.

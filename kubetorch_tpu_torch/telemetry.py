@@ -13,8 +13,10 @@ metric names and exposition text:
   lines with ``le``, ``_sum``, ``_count``), ``histogram()``, ``timed()``
   (a block's wall-clock observed into a histogram) and ``train_metrics()``
   (``kt_train_step_seconds{phase}``, observed by ``make_train_step``, and
-  the ``kt_train_mfu`` gauge), and ``pipeline_metrics()`` (the elastic
-  pipeline's ``kt_pipeline_*`` family).
+  the ``kt_train_mfu`` gauge), ``pipeline_metrics()`` (the elastic
+  pipeline's ``kt_pipeline_*`` family) and ``cold_start_metrics()`` (a
+  replica's boot by phase, ``kt_cold_start_*``, and the compile cache's
+  ``kt_aot_cache_total{result}``).
 
 And spans (``span``, ``current_span``, ``current_header``, ``add_event``,
 the ``TraceRing`` ``RING``) with the JAX package's wire format: the
@@ -335,6 +337,61 @@ def pipeline_metrics() -> Dict[str, Union[Counter, Gauge, Histogram]]:
                 buckets=(0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120)),
         }
     return _PIPELINE_METRICS
+
+
+# A replica's boot by phase: ``import`` (python and module import),
+# ``weight_fetch`` (weights read or pulled), ``weight_attach`` (the shared
+# segment attached and the leaves copied onto the device),
+# ``compile_or_cache`` (the kernel libraries resolved through the compile
+# cache, building on a miss, and the warm passes), ``engine_init`` and
+# ``first_token`` (submit to the probe's first token).
+COLD_START_PHASES = ("import", "weight_fetch", "weight_attach",
+                     "compile_or_cache", "engine_init", "first_token")
+
+_COLD_START_METRICS: Optional[Dict[str, Union[Counter, Gauge, Histogram]]] = None
+
+
+def cold_start_metrics() -> Dict[str, Union[Counter, Gauge, Histogram]]:
+    """Get-or-create the replica cold-start family under the JAX package's
+    names: the boot's phases (``kt_cold_start_seconds{phase}``, phases in
+    :data:`COLD_START_PHASES`), the last full boot and when it ended (the
+    gauges the controller's fast-scale gate reads), the compile cache's
+    lookups by result, the template's forks by outcome and the router's
+    readiness-fence decisions."""
+    global _COLD_START_METRICS
+    if _COLD_START_METRICS is None:
+        _COLD_START_METRICS = {
+            "phase_seconds": histogram(
+                "kt_cold_start_seconds",
+                "Replica cold-start anatomy by phase (import, weight_fetch, "
+                "weight_attach, compile_or_cache, engine_init, first_token)",
+                labels=("phase",)),
+            "total": gauge(
+                "kt_cold_start_total_seconds",
+                "Wall-clock of this replica's last full cold start "
+                "(0 until one has been measured)"),
+            "boot_ts": gauge(
+                "kt_cold_start_timestamp_seconds",
+                "Unix time this replica last completed a measured cold "
+                "start"),
+            "aot": counter(
+                "kt_aot_cache_total",
+                "AOT compile-cache lookups by result (hit, miss, "
+                "incompatible, corrupt, publish, store_hit, "
+                "store_publish, store_corrupt)",
+                labels=("result",)),
+            "forks": counter(
+                "kt_template_forks_total",
+                "Template-process fork requests by outcome (ok, error, "
+                "template_dead)",
+                labels=("outcome",)),
+            "fence": counter(
+                "kt_serve_readiness_fence_total",
+                "Router readiness-fence decisions for still-warming "
+                "replicas (admitted, blocked, expired, departed)",
+                labels=("result",)),
+        }
+    return _COLD_START_METRICS
 
 
 # ---------------------------------------------------------------------------

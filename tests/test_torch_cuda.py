@@ -1790,3 +1790,42 @@ def test_store_get_lands_on_the_card_bitwise(cuda, tmp_path, monkeypatch):
         store.close()
     assert by_source[0]["store"] > 0 and by_source[0]["pod-cache"] == 0
     assert by_source[1]["pod-cache"] == by_source[0]["store"]
+
+
+def test_aot_cache_hit_loads_flash_fwd_without_nvcc(cuda, tmp_path,
+                                                     monkeypatch):
+    """A1's library through the compile cache: published from this
+    process's build, then, on a fresh pod (an empty build directory,
+    nothing loaded), a hit that loads with no nvcc run and gives A1's
+    outputs bitwise equal to the built library's."""
+    import functools
+
+    from kubetorch_tpu_torch.ops import _build
+    from kubetorch_tpu_torch.serve.aot_cache import (AOTCompileCache, AOTKey,
+                                                     kernels_digest)
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v = (torch.randn(1, 256, n, 128, generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (32, 8, 8))
+    want = flash_attention(q, k, v)
+    key = AOTKey(model="a1", mesh_shape=None, buckets=(256,), slots=1,
+                 max_len=256, quantize_kv=False, decode_block=1,
+                 torch_version=torch.__version__,
+                 device=torch.cuda.get_device_name(cuda),
+                 kernels=kernels_digest())
+    build = functools.partial(_build.build, "flash_fwd")
+    _, tag = AOTCompileCache(tmp_path / "aot").get_or_compile(
+        key, "flash_fwd", build)
+    assert tag == "miss"
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_libs", {})
+    runs = _build.build.nvcc_runs
+    cache = AOTCompileCache(tmp_path / "aot")
+    _, tag = cache.get_or_compile(key, "flash_fwd", build)
+    assert tag == "hit" and cache.counts == {"hit": 1}
+    assert _build.build.nvcc_runs == runs
+    assert _build.library_path("flash_fwd").parent == tmp_path / "_build"
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

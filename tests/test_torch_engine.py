@@ -194,22 +194,30 @@ def test_submit_validation(params):
         eng.submit([1], max_new_tokens=2, top_p=1.5)
 
 
-@pytest.mark.parametrize("ctor_kw", [{"aot_cache": object()},
+@pytest.mark.parametrize("ctor_kw", [{"aot_cache": "cache"},
                                      {"mesh": object()}])
-def test_unported_engine_knobs_raise(params, ctor_kw):
-    """``aot_cache`` is not ported. A mesh is, for quantized weight trees
-    too: a quantized tree of plain tensors meets the mesh's layout check
-    as any plain tree does (``ValueError``: every param must be a DTensor
-    on the mesh), not a refusal of the feature. LoRA banks on a real mesh
-    are held against the plain engine in ``tests/test_torch_mesh_serve.py``
-    and against JAX in ``tests/test_torch_mesh_lora_spec.py``."""
+def test_unported_engine_knobs_raise(params, ctor_kw, tmp_path):
+    """No engine knob is refused any more. ``aot_cache`` is ported
+    (``serve/aot_cache.py``, held against JAX in
+    ``tests/test_torch_aot_cache.py``): on the CPU the engine takes a cache
+    and warms its buckets and decode block with no library to resolve. A
+    mesh is ported, for quantized weight trees too: a quantized tree of
+    plain tensors meets the mesh's layout check as any plain tree does
+    (``ValueError``: every param must be a DTensor on the mesh), not a
+    refusal of the feature. LoRA banks on a real mesh are held against the
+    plain engine in ``tests/test_torch_mesh_serve.py`` and against JAX in
+    ``tests/test_torch_mesh_lora_spec.py``."""
     from kubetorch_tpu_torch.models.quant import quantize_params
-    raised = NotImplementedError
-    if "mesh" in ctor_kw:
-        params, raised = quantize_params(params), ValueError
-    with pytest.raises(raised, match="DTensor" if raised is ValueError else None):
-        GenerationEngine(params, cfg(), slots=1, max_len=16, device="cpu",
-                         **ctor_kw)
+    if "aot_cache" in ctor_kw:
+        from kubetorch_tpu_torch.serve.aot_cache import AOTCompileCache
+        eng = GenerationEngine(params, cfg(), slots=1, max_len=16,
+                               device="cpu",
+                               aot_cache=AOTCompileCache(tmp_path))
+        assert eng.aot_stats() == {"executables": len(eng._buckets) + 1}
+        return
+    with pytest.raises(ValueError, match="DTensor"):
+        GenerationEngine(quantize_params(params), cfg(), slots=1, max_len=16,
+                         device="cpu", **ctor_kw)
 
 
 @pytest.mark.parametrize("submit_kw", [{"adapter_id": 1}])
