@@ -38,8 +38,8 @@
    design's bf16 time (quoted from PERF.md, not measured here); for B1 and
    B2 the share of the bound also in the kernels line; for A1-A3
    the fp32-FMA body's time on fp32 inputs of the same shape (measured).
-4. Serves Llama-3-8B at full width and depth (random weights from a seed)
-   through
+4. Serves Llama-3-8B at full width and CUT_LAYERS (8) of its 32 layers
+   (random weights from a seed) through
    GenerationEngine: 8 slots, max_len 2048, greedy, 12 requests with
    prompts over every prefill bucket, admitted while others decode. Checks
    that every request completes, that the flash-prefill and flash-decode
@@ -70,13 +70,13 @@
    finished); a prefix registered through an adapter matched by
    auto_prefix for that adapter's request and not for a base one; decode
    ms/step with the three adapters active beside the grid with none.
-   Then a LoRA fine-tune of these params at full width and depth
+   Then a LoRA fine-tune of these params at full width, CUT_LAYERS layers
    ("lora_train"; the plain engine freed first, the base never copied):
    rank 16 on wq/wk/wv/wo, lora_loss through make_train_step with
    adamw(1e-3), remat "dots", chunked CE, 5 steps on one seeded 4 x 2048
    batch fed through prefetch_to_device: the loss falls, the step-0 loss
    is within LOSS_ABS of the plain attention path, every base leaf hashes
-   the same after training, exact A1/A2/A3 counts (64/32/32 a step), 5
+   the same after training, exact A1/A2/A3 counts (2L/L/L a step), 5
    kt_train_step_seconds{phase="compute"} observations, adapter gradients
    of the kernel path within TRAIN_GRAD_REL of the plain path in fp32 at 2
    layers, a profiled step; then the trained adapter served merged
@@ -119,8 +119,9 @@
    the seed tree (norms drawn from a seed and rounded to bf16) written by
    the script's own safetensors writer and inverse RoPE permutation (an
    index map) in the layout of Meta's meta-llama/Meta-Llama-3-8B
-   repository (its config.json, four bf16 shards of at most 5 GB, the
-   index), after a check of the free disk; load_hf onto the card: every
+   repository at CUT_LAYERS of its 32 layers (its config.json with that
+   depth, bf16 shards of at most 5 GB, two at this depth, the index),
+   after a check of the free disk; load_hf onto the card: every
    leaf bitwise the seed tree's (load seconds, GB/s, host RSS rise, device
    bytes). A second directory at the same width, 2 layers, fp32, with
    Llama-3.1-8B's rope_scaling: llama_forward on its load_hf within 1e-4
@@ -285,15 +286,26 @@
    plane ("data_plane", drive_data_plane): Llama-3-8B's leaves at full
    width and 2 layers (2.97 GB, bf16, seeded on the card) put through the
    port's store client (kubetorch_tpu_torch/data_store/) into the
-   script's store stand-in (_StandInStore); pod A (the script again,
-   --data-plane-rank, its own pod cache) gets it onto the card; pod B,
-   started beside A, loads the tree staged into the port's shared-memory
-   arena onto the card and as DTensors on a world-of-1 mesh, then, with a
-   cache server over A's directory standing in for A's pod server, is
-   routed to A (peer bytes the tree's and the index's, no store bytes);
-   every landed leaf
-   holds the sent tree's checksums; GB/s of each move and /dev/shm's free
-   bytes printed. The memory audit ("hbm_audit") runs in the mesh rank,
+   script's store stand-in (_StandInStore) as slot 0 of a checkpoint;
+   pod A (the script again, --data-plane-rank, its own pod cache and the
+   fabric's ktblobd, built with g++ from kubetorch_tpu/native/ktblobd.cpp,
+   over it) gets it onto the card; pod B, started beside A, loads the tree
+   staged into the port's shared-memory arena onto the card and as
+   DTensors on a world-of-1 mesh, then is routed to A twice: (a) with A's
+   pod route down, every byte from A's ktblobd, and, the daemon stopped
+   and a cache server over A's directory standing in for A's pod server,
+   over the pod route (peer bytes the tree's and the index's, no store
+   bytes, each time); (b) ktsync: Llama-3.2-1B in Meta's published HF
+   layout (~2.5 GB, seeded, the head tied) put as a directory, put again
+   (0 uploaded), pulled in pod B with get(key, dest=) and loaded with
+   load_hf onto the card bitwise the seed tree, pulled again (0 fetched),
+   one added file moving one blob each way; (c) the port's
+   XRegionReplicator sweeps the tree and its commit marker into a second
+   stand-in, "west", twice (the second pushes nothing, lag 0), east
+   stops, and in west fallback_commit finds the marker and get onto the
+   card gives every leaf. Every landed leaf holds the sent tree's
+   checksums; GB/s of each move, the seconds of (a)-(c) and /dev/shm's
+   free bytes printed. The memory audit ("hbm_audit") runs in the mesh rank,
    before its process group: the mesh step's 1B shape (a world of 1) and
    Llama-3-8B on an 8-way fsdp mesh (HBM_AUDIT_8B), on fake tensors under
    fake process groups, no kernel launched; the 1B report's params +
@@ -345,10 +357,11 @@ MAX_NEW = 32
 # the depth of the paths cut to keep the whole script within its time, width
 # kept: the int4 Llama-3-8B engine with its features, LoRA and speculation,
 # the mesh engines of Llama-3-8B ("mesh_serve") and of Mixtral ("moe_mesh"),
-# the pipelines (Llama-3.2-1B's shape, of its 16 layers) and, since the
-# "cold_start" phase, Mixtral's engine ("moe"). The bf16 Llama-3-8B engine
-# with its features, LoRA, fine-tune, rollout and speculation and
-# "hf_openai" serve all 32 layers
+# the pipelines (Llama-3.2-1B's shape, of its 16 layers), since the
+# "cold_start" phase Mixtral's engine ("moe"), and since the data plane's
+# ktsync, ktblobd and cross-region steps the bf16 Llama-3-8B engine with
+# its features, LoRA, fine-tune, rollout and speculation, and "hf_openai"
+# (Meta's layout and sharding at this depth)
 CUT_LAYERS = 8
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attention", "quant_matmul")
 # the engine's prefill buckets (the last is max_len) and a ragged length
@@ -558,7 +571,34 @@ PIPE_GRAD_REL_L2 = 5e-2
 # gitignored DATA_PLANE_DIR of the checkout, removed after
 DATA_PLANE_FLAG, DATA_PLANE_SPEC_ENV = "--data-plane-rank", "KT_SMOKE_DATA_PLANE"
 DATA_PLANE_LAYERS, DATA_PLANE_SEED = 2, 5
-DATA_PLANE_KEY, DATA_PLANE_DIR = "smoke/llama3-8b", "data_plane"
+# the tree sits in slot 0 of a checkpoint at DATA_PLANE_BASE, whose commit
+# marker (step DATA_PLANE_STEP) the cross-region sweep carries
+DATA_PLANE_BASE, DATA_PLANE_DIR = "smoke/llama3-8b", "data_plane"
+DATA_PLANE_KEY, DATA_PLANE_STEP = DATA_PLANE_BASE + "/slot-0", 1
+# ktsync in the data plane: Llama-3.2-1B in the layout of Meta's published
+# meta-llama/Llama-3.2-1B repository (its config.json; the bf16 weights in
+# one model.safetensors, the head tied to the embedding), written from a
+# seeded tree (norms drawn from SYNC_NORM_SEED, rounded to bf16), pushed
+# under SYNC_KEY and pulled into a pod; then SYNC_ADDED is added and pushed
+META_LLAMA32_1B = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000, "eos_token_id": 128001,
+    "head_dim": 64, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 8192,
+    "max_position_embeddings": 131072, "mlp_bias": False,
+    "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 16,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0,
+                     "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "rope_theta": 500000.0, "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16", "transformers_version": "4.45.0.dev0",
+    "use_cache": True, "vocab_size": 128256}
+SYNC_KEY, SYNC_SEED, SYNC_NORM_SEED = "smoke/hf/Llama-3.2-1B", 6, 7
+SYNC_ADDED = ("generation_config.json",
+              {"bos_token_id": 128000, "eos_token_id": 128001,
+               "temperature": 0.6, "top_p": 0.9})
 # the "cold_start" phase: Llama-3.2-1B, bf16, full width and depth; the
 # engine every boot builds, the probe each serves
 COLD_START_SEED, COLD_START_DIR = 20, "cold_start"
@@ -624,7 +664,7 @@ MOE_GATHER_PROMPTS = (40, 300, 700, 1500)
 # counted steps (tokens/s over all but the first, which holds the first
 # call's set-up), then one profiled step:
 # - "lora_train": a LoRA fine-tune of the bf16 Llama-3-8B engine phases'
-#   params at full width and depth (lora_config(): rank 16, alpha 32,
+#   params at full width, CUT_LAYERS (lora_config(): rank 16, alpha 32,
 #   wq/wk/wv/wo; lora_init's zero B), adamw(LORA_TRAIN_LR), chunked CE
 #   TRAIN_CHUNK, remat "dots"; then the trained adapter served merged
 #   (merge_lora -> a new engine) and banked (registered into the LoRA
@@ -670,8 +710,8 @@ ROLLOUT_FLIGHT_NEW = 256
 Q4_WINDOW_SHAPES = tuple((8 * (2 * SPEC_K + 1), k, n) for _, k, n in Q4_SHAPES[:4])
 # the "hf_openai" phase: a checkpoint in the layout of Meta's published
 # meta-llama/Meta-Llama-3-8B repository (its config.json, bf16 weights in
-# four safetensors shards of at most 5 GB and model.safetensors.index.json)
-# written from the engine phases' seed tree, its norms drawn from a seed;
+# safetensors shards of at most 5 GB and model.safetensors.index.json) at
+# CUT_LAYERS layers, written from a seed tree, its norms drawn from a seed;
 # a second one at the same width, 2 layers, fp32, with Llama-3.1-8B's
 # rope_scaling, for the forward against the script's own HF-convention
 # forward (fp32 on both sides, TF32 off: only the order of the sums
@@ -692,7 +732,7 @@ LLAMA31_ROPE_SCALING = {"factor": 8.0, "low_freq_factor": 1.0,
                         "high_freq_factor": 4.0,
                         "original_max_position_embeddings": 8192,
                         "rope_type": "llama3"}
-HF_SHARD_BYTES, HF_SHARDS = 5 * 10 ** 9, 4
+HF_SHARD_BYTES = 5 * 10 ** 9
 HF_NORM_SEED, HF_FWD_SEED, HF_FWD_LAYERS = 3, 5, 2
 HF_FWD_PROMPTS, HF_FWD_REL_L2 = (512, 300, 128, 37), 1e-4
 # the surface's traffic: the engine phases' 12 prompts one at a time
@@ -1283,7 +1323,7 @@ def drive_engine(torch, ops_attn, ops_dec, card):
     from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
     from kubetorch_tpu_torch.serve import GenerationEngine
 
-    cfg = LlamaConfig.llama3_8b()
+    cfg = LlamaConfig.llama3_8b(n_layers=CUT_LAYERS)
     t0 = time.perf_counter()
     params = llama_init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -2096,7 +2136,7 @@ def check_merged_logits(torch, label, got, merged, cfg, eng, prompt, first_tok,
 
 
 def drive_lora(torch, ops_attn, ops_dec, params, cfg, plain, card):
-    """Multi-LoRA on the bf16 Llama-3-8B engine at full width and depth,
+    """Multi-LoRA on the bf16 Llama-3-8B engine at full width, CUT_LAYERS,
     on the engine phase's params; ``plain`` (that phase's engine, no
     banks) runs the same traffic on the base model. Returns the launches
     of the adapter runs together, and the engine with its banks (the
@@ -4059,8 +4099,9 @@ def drive_hf_openai(torch, ops_attn, ops_dec, card):
         for k in totals:
             totals[k] += got[k]
 
-    cfg = LlamaConfig.llama3_8b()
+    cfg = LlamaConfig.llama3_8b(n_layers=CUT_LAYERS)
     L = cfg.n_layers
+    conf1 = dict(META_LLAMA3_8B, num_hidden_layers=L)
     bytes_8b = cfg.param_count() * 2
     conf2 = dict(META_LLAMA3_8B, num_hidden_layers=HF_FWD_LAYERS,
                  torch_dtype="float32", rope_scaling=LLAMA31_ROPE_SCALING,
@@ -4089,7 +4130,7 @@ def drive_hf_openai(torch, ops_attn, ops_dec, card):
         dir1 = os.path.join(root, "Meta-Llama-3-8B")
         t = time.perf_counter()
         nbytes, shards = write_hf_checkpoint(
-            torch, dir1, META_LLAMA3_8B,
+            torch, dir1, conf1,
             hf_items_from_tree(torch, src, cfg, torch.bfloat16))
         write_s = time.perf_counter() - t
         with open(os.path.join(dir1, "model.safetensors.index.json")) as f:
@@ -4097,9 +4138,10 @@ def drive_hf_openai(torch, ops_attn, ops_dec, card):
         print(f"hf_openai: wrote {dir1}: {nbytes} bytes in {shards} shards "
               f"{files} in {write_s:.2f}s ({nbytes / write_s / 1e9:.2f} GB/s, "
               f"fsync'd)", flush=True)
-        if shards != HF_SHARDS or nbytes != bytes_8b:
+        want_shards = -(-bytes_8b // HF_SHARD_BYTES)
+        if shards != want_shards or shards < 2 or nbytes != bytes_8b:
             fail(f"hf_openai: {shards} shards of {nbytes} bytes, expected "
-                 f"{HF_SHARDS} of {bytes_8b}")
+                 f"{want_shards} (at least 2) of {bytes_8b}")
 
         # 2. load_hf onto the card: every leaf the seed tree's bits
         maxrss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
@@ -6491,13 +6533,18 @@ def moe_mesh_rank() -> None:
 class _StandInStore:
     """The store's wire, the subset the port's client speaks (read off
     kubetorch_tpu/data_store/store_server.py, imported from nowhere): PUT,
-    GET and HEAD of /kv/<key> with X-KT-Meta (size and stored_at
-    stamped; the client's blake2b kept, where the store server re-hashes
-    the body: the getters verify every byte against the index anyway),
-    POST /kv/diff (zlib bodies),
-    /route, /route/complete and /route/failed (a breadth-first tree of
-    fan-out 2), and 404 for /tree/<key>/manifest. Kept in this process's
-    memory; ThreadingHTTPServer on a free port of localhost."""
+    GET and HEAD of /kv/<key> with X-KT-Meta (size stamped, and stored_at
+    unless the PUT carries one, as the store keeps a replicated write's;
+    the client's blake2b kept, where the store server re-hashes the body:
+    the getters verify every byte against the index anyway), POST /kv/diff
+    (zlib bodies), GET /keys (kv keys and trees, by prefix), /route,
+    /route/complete and /route/failed (a breadth-first tree of fan-out 2,
+    each member's ktblobd address kept and handed to its children), and
+    ktsync's POST /tree/<key>/diff and /commit (409 while a blob is
+    missing), GET /tree/<key>/manifest and PUT/GET /blob/<hash> (kept
+    unverified: the puller checks each blob against its hash). Kept in
+    this process's memory; ThreadingHTTPServer on a free port of
+    localhost."""
 
     FANOUT = 2
 
@@ -6506,7 +6553,10 @@ class _StandInStore:
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         self.kv = {}            # key -> (bytes, meta)
-        self.routes = {}        # key -> {url: {"parent", "children", "depth"}}
+        self.blobs = {}         # blake2b -> bytes
+        self.trees = {}         # key -> manifest
+        self.routes = {}        # key -> {url: {"parent", "children", "depth",
+        #                                       "blob_url"}}
         self.lock = threading.Lock()
         store = self
 
@@ -6536,23 +6586,52 @@ class _StandInStore:
                     raw = zlib.decompress(raw)
                 return raw
 
-            def key(self, prefix):
+            def key(self, prefix, suffix=""):
                 from urllib.parse import unquote
-                return unquote(self.path.split("?", 1)[0][len(prefix):])
+                path = self.path.split("?", 1)[0]
+                return unquote(path[len(prefix):len(path) - len(suffix)])
 
             def do_PUT(self):
                 import hashlib
+                if self.path.startswith("/blob/"):
+                    data = self.body()
+                    with store.lock:
+                        store.blobs[self.key("/blob/")] = data
+                    return self.json_reply(200, {"ok": True, "size": len(data)})
                 key, data = self.key("/kv/"), self.body()
                 meta = json.loads(self.headers.get("X-KT-Meta") or "{}")
                 if "blake2b" not in meta:       # the client's hash is kept
                     meta["blake2b"] = hashlib.blake2b(
                         data, digest_size=20).hexdigest()
-                meta.update(size=len(data), stored_at=round(time.time(), 6))
+                meta["size"] = len(data)
+                meta.setdefault("stored_at", round(time.time(), 6))
                 with store.lock:
                     store.kv[key] = (data, meta)
                 self.json_reply(200, {"ok": True, "size": len(data)})
 
             def do_GET(self, head=False):
+                from urllib.parse import parse_qs, urlsplit
+                if self.path.startswith("/keys"):
+                    prefix = parse_qs(urlsplit(self.path).query).get(
+                        "prefix", [""])[0]
+                    with store.lock:
+                        keys = ([{"key": k, "size": len(v[0]), "kind": "kv"}
+                                 for k, v in store.kv.items()]
+                                + [{"key": k, "kind": "tree"}
+                                   for k in store.trees])
+                    return self.json_reply(200, {"keys": sorted(
+                        (k for k in keys if k["key"].startswith(prefix)),
+                        key=lambda k: k["key"])})
+                if self.path.startswith("/tree/"):
+                    manifest = store.trees.get(self.key("/tree/", "/manifest"))
+                    if manifest is None:
+                        return self.json_reply(404, {"error": "no such tree"})
+                    return self.json_reply(200, manifest)
+                if self.path.startswith("/blob/"):
+                    data = store.blobs.get(self.key("/blob/"))
+                    if data is None:
+                        return self.json_reply(404, {"error": "no such blob"})
+                    return self.reply(200, data, head=head)
                 if not self.path.startswith("/kv/"):
                     return self.json_reply(404, {"error": "not here"})
                 held = store.kv.get(self.key("/kv/"))
@@ -6570,13 +6649,31 @@ class _StandInStore:
                     missing = [k for k, h in body["keys"].items()
                                if store.kv.get(k, (0, {}))[1].get("blake2b") != h]
                     return self.json_reply(200, {"missing": sorted(missing)})
+                if self.path.startswith("/tree/"):
+                    files = body.get("files", {})
+                    missing = sorted({f["hash"] for f in files.values()}
+                                     - set(store.blobs))
+                    if self.path.endswith("/diff"):
+                        return self.json_reply(200, {"missing": missing})
+                    if missing:
+                        return self.json_reply(409, {"error": "missing blobs",
+                                                     "missing": missing})
+                    with store.lock:
+                        store.trees[self.key("/tree/", "/commit")] = {
+                            "files": files, "committed_at": time.time()}
+                    return self.json_reply(200, {"ok": True,
+                                                 "files": len(files)})
                 with store.lock:
                     group = store.routes.setdefault(body["key"], {})
                     if self.path == "/route":
-                        out = store.route(group, body.get("self_url"))
+                        out = store.route(group, body.get("self_url"),
+                                          body.get("self_blob_url"))
                     elif self.path == "/route/complete":
-                        group.setdefault(body["url"], {"parent": None,
-                                                       "children": 0, "depth": 1})
+                        member = group.setdefault(body["url"], {
+                            "parent": None, "children": 0, "depth": 1,
+                            "blob_url": None})
+                        if body.get("blob_url"):
+                            member["blob_url"] = body["blob_url"]
                         out = {"ok": True, "members": len(group)}
                     elif self.path == "/route/failed":
                         out = {"evicted": group.pop(body["url"], None) is not None}
@@ -6591,19 +6688,22 @@ class _StandInStore:
                                        daemon=True)
         self.thread.start()
 
-    def route(self, group, self_url):
+    def route(self, group, self_url, self_blob_url=None):
         """The shallowest member with a free child slot parents the caller
-        (the store roots the first); the caller joins the tree at once."""
+        (the store roots the first); the caller joins the tree at once,
+        with its ktblobd address when it runs one."""
         cands = sorted((m["depth"], m["children"], u) for u, m in group.items()
                        if m["children"] < self.FANOUT and u != self_url)
         parent = cands[0][2] if cands else None
         depth = group[parent]["depth"] + 1 if parent else 1
         if self_url:
-            group[self_url] = {"parent": parent, "children": 0, "depth": depth}
+            group[self_url] = {"parent": parent, "children": 0, "depth": depth,
+                               "blob_url": self_blob_url}
         if parent is None:
             return {"source": "store", "depth": depth}
         group[parent]["children"] += 1
-        return {"source": "peer", "url": parent, "depth": depth}
+        return {"source": "peer", "url": parent,
+                "blob_url": group[parent]["blob_url"], "depth": depth}
 
     def close(self):
         self.server.shutdown()
@@ -6691,19 +6791,37 @@ def check_landed(torch, label, tree, want):
         fail(f"data_plane: {label}: leaves {bad} differ from the tree sent")
 
 
+def wait_for_go(label, path, timeout=300):
+    """Block until the phase creates ``path`` (a pod's cue)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            fail(f"data_plane: {label}: no go from the phase")
+        time.sleep(0.02)
+
+
+def touch(path):
+    with open(path, "w"):
+        pass
+
+
 def data_plane_rank() -> None:
     """One pod of the "data_plane" phase (DATA_PLANE_FLAG), spec in
     DATA_PLANE_SPEC_ENV; every landed leaf is held to the sent tree's
     checksums, and the record (seconds, bytes by source) is the last line.
-    Each pod fetches once the phase says go (its `go` file exists).
-    mode "get": the tree onto the card through the broadcast tree,
-    get(key, device="cuda", peer=True), the bytes each source served read
-    off kt_store_fetch_bytes_total{source} around the call (this pod's
-    cache fills and /route/complete makes it a parent). mode "peer",
-    started beside the first pod: the tree staged by the parent,
-    load_staged onto the card and then as DTensors on a world-of-1 mesh
-    (nccl, LLAMA_RULES); then the same get as the first pod's, routed to
-    it."""
+    mode "peer" first loads the tree staged by the parent: load_staged
+    onto the card and then as DTensors on a world-of-1 mesh (nccl,
+    LLAMA_RULES). Then each of the spec's `gets`, once its `go` file
+    exists: get(key, device="cuda", peer=True) through the broadcast tree
+    as a pod with that step's cache directory and server port (a new
+    member of the tree), the bytes each source served read off
+    kt_store_fetch_bytes_total{source} around the call (the pod's cache
+    fills and /route/complete makes it a parent); its `done` file
+    follows. Then, with a `sync` in the spec, ktsync: get(key, dest=) of
+    the HF directory, load_hf(dest, device="cuda") held to the seed tree
+    leaf by leaf (dtype, shape, checksum), a second pull that must fetch
+    nothing, and after the phase's `go2` a third that must fetch the one
+    file added."""
     import torch
 
     from kubetorch_tpu_torch import telemetry
@@ -6749,24 +6867,73 @@ def data_plane_rank() -> None:
             del tree, leaves
         finally:
             distributed.destroy()
-    deadline = time.monotonic() + 300
-    while not os.path.exists(spec["go"]):
-        if time.monotonic() > deadline:
-            fail(f"data_plane: {spec['mode']}: no go from the phase")
-        time.sleep(0.02)
     fetch_bytes = telemetry.counter("kt_store_fetch_bytes_total",
                                     labels=("source",))
     sources = ("store", "peer", "pod-cache")
-    before = {src: fetch_bytes.value(source=src) for src in sources}
-    t = time.perf_counter()
-    tree = ds.get(key, store_url=url, device="cuda", peer=True)
-    torch.cuda.synchronize()
-    rec["get_s"] = time.perf_counter() - t
-    moved = {src: int(fetch_bytes.value(source=src) - before[src])
-             for src in sources}
-    rec["bytes_by_source"] = {src: n for src, n in moved.items() if n}
-    check_landed(torch, f"{spec['mode']}: get(device='cuda')", tree, want)
+    for step in spec["gets"]:
+        label = f"{spec['mode']} {step['label']}"
+        wait_for_go(label, step["go"])
+        os.environ.update(KT_DATA_CACHE_DIR=step["cache"],
+                          KT_SERVER_PORT=str(step["port"]))
+        before = {src: fetch_bytes.value(source=src) for src in sources}
+        t = time.perf_counter()
+        tree = ds.get(key, store_url=url, device="cuda", peer=True)
+        torch.cuda.synchronize()
+        moved = {src: int(fetch_bytes.value(source=src) - before[src])
+                 for src in sources}
+        rec[step["label"]] = dict(
+            get_s=time.perf_counter() - t,
+            bytes_by_source={src: n for src, n in moved.items() if n})
+        check_landed(torch, f"{label}: get(device='cuda')", tree, want)
+        del tree
+        touch(step["done"])
+    if spec.get("sync"):
+        rec["sync"] = sync_pod_steps(torch, url, spec["sync"])
     print(json.dumps(rec), flush=True)
+
+
+def sync_pod_steps(torch, url, sync):
+    """Pod B's part of (b): pull the HF directory with ktsync, load it onto
+    the card, hold it to the seed tree; pull again (nothing), and after
+    `go2` once more (the added file only)."""
+    from kubetorch_tpu_torch.data_store import commands as ds
+    from kubetorch_tpu_torch.models import load_hf
+
+    wait_for_go("sync", sync["go"])
+    out = {}
+    t = time.perf_counter()
+    out["pull"] = ds.get(sync["key"], dest=sync["dest"], store_url=url)
+    out["pull_s"] = time.perf_counter() - t
+    if out["pull"] != {"files": sync["files"], "fetched": sync["files"],
+                       "deleted": 0}:
+        fail(f"data_plane: sync: the first pull gave {out['pull']}")
+    t = time.perf_counter()
+    params, _ = load_hf(sync["dest"], device="cuda")
+    torch.cuda.synchronize()
+    out["load_hf_s"] = time.perf_counter() - t
+    leaves = named_leaves(params)
+    got = {p: [str(x.dtype), list(x.shape), h] for (p, x), h in zip(
+        sorted(leaves.items()),
+        leaf_hashes(torch, [leaves[p] for p in sorted(leaves)]))}
+    bad = sorted(p for p in set(got) | set(sync["want"])
+                 if got.get(p) != sync["want"].get(p))
+    if bad:
+        fail(f"data_plane: sync: load_hf of the pulled directory differs "
+             f"from the seed tree at {bad[:4]}")
+    if not all(x.is_cuda for x in leaves.values()):
+        fail("data_plane: sync: load_hf did not land on the card")
+    del params, leaves
+    out["pull_again"] = ds.get(sync["key"], dest=sync["dest"], store_url=url)
+    if out["pull_again"]["fetched"] != 0:
+        fail(f"data_plane: sync: a second pull fetched {out['pull_again']}")
+    touch(sync["done"])
+    wait_for_go("sync added file", sync["go2"])
+    out["pull_added"] = ds.get(sync["key"], dest=sync["dest"], store_url=url)
+    if out["pull_added"] != {"files": sync["files"] + 1, "fetched": 1,
+                             "deleted": 0}:
+        fail(f"data_plane: sync: after one added file the pull gave "
+             f"{out['pull_added']}")
+    return out
 
 
 def start_data_plane_pod(label, spec, env):
@@ -6806,15 +6973,162 @@ def finish_data_plane_pod(label, pod, timeout=300):
     return json.loads(out[-1])
 
 
+def wait_for_pod_step(label, pod, path, timeout=300):
+    """Block until a running pod creates ``path``; a pod that exits first
+    fails the phase with its output."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if pod[0].poll() is not None:
+            finish_data_plane_pod(label, pod)
+            fail(f"{label}: the pod exited before {os.path.basename(path)}")
+        if time.monotonic() > deadline:
+            fail(f"{label}: no {os.path.basename(path)} in {timeout}s")
+        time.sleep(0.02)
+
+
+def build_blobd(here):
+    """The fabric's native peer daemon (kubetorch_tpu/native/ktblobd.cpp,
+    which the fabric's pod server runs beside each pod) built with g++
+    into the gitignored kubetorch_tpu_torch/_build/; the compile is left
+    running: (process, binary)."""
+    out_dir = os.path.join(here, "kubetorch_tpu_torch", "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    binary = os.path.join(out_dir, "ktblobd")
+    proc = subprocess.Popen(
+        ["g++", "-O3", "-std=c++17", "-o", binary,
+         os.path.join(here, "kubetorch_tpu", "native", "ktblobd.cpp")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, binary
+
+
+def spawn_blobd(build, root):
+    """ktblobd over the pod cache ``root`` on a free port of localhost, once
+    its build is done: (process, port)."""
+    out = build[0].communicate()[0]
+    if build[0].returncode != 0:
+        fail(f"data_plane: building ktblobd failed: {out[-2000:]}")
+    proc = subprocess.Popen([build[1], "--root", root, "--host", "127.0.0.1",
+                             "--port", "0"], stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    line = proc.stdout.readline().strip()
+    if not line.startswith("PORT "):
+        proc.kill()
+        proc.wait()
+        fail(f"data_plane: ktblobd did not start: {line!r}")
+    return proc, int(line.split()[1])
+
+
+def sync_seed_dir(torch, path):
+    """(b)'s source: Llama-3.2-1B from SYNC_SEED on the card, bf16, its
+    norms from SYNC_NORM_SEED rounded to bf16 (kept fp32, as load_hf gives
+    them), the head tied to the embedding, written in Meta's published
+    layout by the script's own writer. Returns (bytes of tensor data,
+    {path: [dtype, shape, checksum]} of the tree load_hf must give)."""
+    from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
+    cfg = LlamaConfig.llama3_1b()
+    src = llama_init(cfg, seed=SYNC_SEED, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SYNC_NORM_SEED)
+    L = cfg.n_layers
+    for tree, key, shape in ((src["layers"], "attn_norm", (L, cfg.dim)),
+                             (src["layers"], "ffn_norm", (L, cfg.dim)),
+                             (src, "final_norm", (cfg.dim,))):
+        tree[key] = (1.0 + 0.1 * torch.randn(shape, generator=g, device="cuda")
+                     ).to(torch.bfloat16).float()
+    src["lm_head"] = src["embed"].t().contiguous()
+    items = [it for it in hf_items_from_tree(torch, src, cfg, torch.bfloat16)
+             if it[0] != "lm_head.weight"]
+    nbytes, shards = write_hf_checkpoint(torch, path, META_LLAMA32_1B, items)
+    if shards != 1:
+        fail(f"data_plane: sync: {shards} shards, Meta's layout has one")
+    leaves = named_leaves(src)
+    want = {p: [str(x.dtype), list(x.shape), h] for (p, x), h in zip(
+        sorted(leaves.items()),
+        leaf_hashes(torch, [leaves[p] for p in sorted(leaves)]))}
+    return nbytes, want
+
+
+def drive_xregion(torch, east, sums, nbytes, card):
+    """(c): the tree's commit marker put beside it in "east" (the phase's
+    store) as train/checkpoint.py writes it; the port's XRegionReplicator
+    sweeps east into a second stand-in, "west", twice (the second must push
+    nothing, lag 0); east stops; in west fallback_commit finds the marker
+    (KT_FED_STORES naming both regions) and get onto the card gives every
+    leaf the sent checksums."""
+    from kubetorch_tpu_torch.data_store import commands as ds
+    from kubetorch_tpu_torch.federation import (XRegionReplicator,
+                                                fallback_commit)
+    from kubetorch_tpu_torch.train import checkpoint as ck
+
+    marker = {"step": DATA_PLANE_STEP, "slot": 0}
+    ds.put_json(ck._marker_key(DATA_PLANE_BASE), marker, store_url=east.url)
+    moved = sum(len(v[0]) for v in east.kv.values())
+    west = _StandInStore()
+    env = {k: os.environ.get(k) for k in ("KT_FED_STORES", "KT_FED_SELF_REGION")}
+    try:
+        rep = XRegionReplicator(east.url, {"west": west.url})
+        t = time.perf_counter()
+        first = rep.sweep()
+        sweep_s = time.perf_counter() - t
+        second = rep.sweep()
+        want_keys = len(east.kv)
+        if first["targets"]["west"] != {"pushed": want_keys, "skipped": 0,
+                                        "failed": 0, "lag_s": 0.0}:
+            fail(f"data_plane: xregion: the first sweep gave {first}, want "
+                 f"{want_keys} keys pushed")
+        if second["targets"]["west"] != {"pushed": 0, "skipped": want_keys,
+                                         "failed": 0, "lag_s": 0.0}:
+            fail(f"data_plane: xregion: the second sweep gave {second}")
+        stamps = {k: (east.kv[k][1]["stored_at"], west.kv[k][1]["stored_at"])
+                  for k in east.kv}
+        if any(a != b for a, b in stamps.values()):
+            fail("data_plane: xregion: a stored_at changed on its way west")
+        east.close()
+        os.environ["KT_FED_STORES"] = f"east={east.url},west={west.url}"
+        os.environ.pop("KT_FED_SELF_REGION", None)
+        found = fallback_commit(DATA_PLANE_BASE, exclude=east.url)
+        if found != (marker, west.url):
+            fail(f"data_plane: xregion: fallback_commit in west found {found}")
+        t = time.perf_counter()
+        got = ds.get(ck._slot_key(DATA_PLANE_BASE, found[0]["slot"]),
+                     store_url=found[1], device="cuda")
+        torch.cuda.synchronize()
+        get_s = time.perf_counter() - t
+        check_landed(torch, "xregion: get in west", got, sums)
+        del got
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        west.close()
+    rec = dict(keys=want_keys, bytes=moved, sweep_s=sweep_s,
+               sweep_gb_per_s=moved / sweep_s / 1e9, sweeps=[first, second],
+               west_get_s=get_s, west_get_gb_per_s=nbytes / get_s / 1e9)
+    print(f"data_plane: (c) xregion: one sweep of {want_keys} keys, {moved} "
+          f"bytes east -> west in {sweep_s:.2f}s ({rec['sweep_gb_per_s']:.3f} "
+          f"GB/s); second sweep {second['targets']['west']}; east stopped, "
+          f"fallback_commit {found[0]} in west, get onto the card "
+          f"{get_s:.2f}s ({rec['west_get_gb_per_s']:.3f} GB/s) card={card}",
+          flush=True)
+    return rec
+
+
 def drive_data_plane(card):
     """The port's data plane on the card ("data_plane"): the seeded tree of
     data_plane_tree (~2.97 GB) put from the card into the script's store
-    stand-in (_StandInStore); pod A (a process with its own pod cache)
-    gets it onto the card; pod B, started beside A, loads the tree staged
-    here into the port's shared-memory arena onto the card and as DTensors
-    on a world-of-1 mesh, then, once a cache server over A's directory
-    stands in for A's pod server, is routed to A (peer bytes: the tree and
-    its index, store bytes at most the index). /dev/shm's free bytes size the staging: the
+    stand-in (_StandInStore) as slot 0 of a checkpoint; pod A (a process
+    with its own pod cache, its ktblobd over it) gets it onto the card;
+    pod B, started beside A, loads the tree staged here into the port's
+    shared-memory arena onto the card and as DTensors on a world-of-1 mesh.
+    (a) With A's pod route down, B is routed to A and takes every byte from
+    A's ktblobd (peer bytes: the tree and its index, store bytes at most the
+    index); then, the daemon stopped and a cache server over A's directory
+    standing in for A's pod server, B as a new member takes them over the
+    pod route. (b) ktsync: Llama-3.2-1B's HF directory (~2.5 GB) put, put
+    again (0 uploaded), pulled in B and loaded onto the card bitwise the
+    seed tree, pulled again (0 fetched); one file added moves one blob each
+    way. (c) drive_xregion. /dev/shm's free bytes size the staging: the
     largest set of whole leaves that fits, printed as a reduction when it
     is not all of them. GB/s of each move, beside the card."""
     import shutil
@@ -6823,49 +7137,62 @@ def drive_data_plane(card):
 
     from kubetorch_tpu_torch.data_store import commands as ds
     from kubetorch_tpu_torch.data_store import staging
+    from kubetorch_tpu_torch.models.llama import LlamaConfig
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     root = os.path.join(here, DATA_PLANE_DIR)
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
+    build = build_blobd(here)
     tree = data_plane_tree(torch)
     leaves = {}
     ds._flatten(tree, "", leaves)
     nbytes = sum(x.numel() * x.element_size() for x in leaves.values())
     sums = dict(zip(sorted(leaves), leaf_hashes(
         torch, [leaves[p] for p in sorted(leaves)])))
+    c1b = LlamaConfig.llama3_1b()
+    sync_est = (c1b.param_count() - c1b.vocab_size * c1b.dim) * 2
+    need = 3 * nbytes + 2 * sync_est + 10 ** 9
     free_disk = shutil.disk_usage(root).free
-    if free_disk < 3 * nbytes:
-        fail(f"data_plane: {free_disk} bytes free on disk, the two pod caches "
-             f"need {2 * nbytes}")
+    if free_disk < need:
+        fail(f"data_plane: {free_disk} bytes free on disk, the three pod "
+             f"caches and the two HF directories need {need}")
     store = _StandInStore()
-    cache_srv = None
-    handle = None
+    cache_srv = daemon = handle = None
     # the segments' names are this run's alone: another checkout may run
     # the phase at the same time
     shm_prefix = f"ktp-smoke-{os.getpid()}-{uuid.uuid4().hex[:8]}"
     pod_a = pod_b = None
+    cue = {n: os.path.join(root, n) for n in (
+        "go-a", "done-a", "go-blobd", "done-blobd", "go-route", "done-route",
+        "go-sync", "done-sync", "go-sync2")}
     try:
         # A starts before the put (its start-up overlaps it) and fetches
-        # once told `go-a`; B starts beside A, its start-up and its staged
-        # loads overlapping A's fetch, and fetches from A once told `go-b`
+        # once told; B starts beside A, its start-up and its staged loads
+        # overlapping A's fetch and the HF directory's push
+        cache_a = os.path.join(root, "cache-a")
+        os.makedirs(cache_a)
+        daemon, blobd_port = spawn_blobd(build, cache_a)
         port_a = free_tcp_port()
-        go_a, go_b = os.path.join(root, "go-a"), os.path.join(root, "go-b")
         base = dict(POD_IP="127.0.0.1", KT_DATA_CACHE_MAX_BYTES=str(4 * nbytes))
         pod_a = start_data_plane_pod("data_plane pod A", {
             "mode": "get", "url": store.url, "key": DATA_PLANE_KEY,
-            "sums": sums, "go": go_a},
-            dict(base, KT_SERVER_PORT=str(port_a),
-                 KT_DATA_CACHE_DIR=os.path.join(root, "cache-a")))
+            "sums": sums, "gets": [dict(label="store", go=cue["go-a"],
+                                        done=cue["done-a"], cache=cache_a,
+                                        port=port_a)]},
+            dict(base, KT_BLOBD_PORT=str(blobd_port)))
         t = time.perf_counter()
         put = ds.put(DATA_PLANE_KEY, tree, store_url=store.url)
         put_s = time.perf_counter() - t
         if put["bytes"] != nbytes:
             fail(f"data_plane: put moved {put['bytes']} of {nbytes} bytes")
         index_bytes = len(store.kv[DATA_PLANE_KEY + ds._INDEX_SUFFIX][0])
-        with open(go_a, "w"):
-            pass
+        touch(cue["go-a"])
+        hf_dir = os.path.join(root, "Llama-3.2-1B")
+        t = time.perf_counter()
+        sync_bytes, sync_want = sync_seed_dir(torch, hf_dir)
+        sync_write_s = time.perf_counter() - t
         shm = os.statvfs("/dev/shm")
         shm_free = shm.f_bavail * shm.f_frsize
         staged_paths, room = [], shm_free - (64 << 20)
@@ -6889,21 +7216,78 @@ def drive_data_plane(card):
         wire = json.loads(staging.handle_to_json(handle))
         wire["leaves"] = {p.replace(".", "/"): h for p, h in wire["leaves"].items()}
         wire["structure"] = {p: "leaf" for p in wire["leaves"]}
+        files = len(os.listdir(hf_dir))
+        dir_bytes = sum(os.path.getsize(os.path.join(hf_dir, f))
+                        for f in os.listdir(hf_dir))
         pod_b = start_data_plane_pod("data_plane pod B", {
             "mode": "peer", "url": store.url, "key": DATA_PLANE_KEY,
-            "sums": sums, "handle": json.dumps(wire), "go": go_b},
-            dict(base, KT_SERVER_PORT=str(free_tcp_port()), KT_PEER_WAIT_S="30",
-                 KT_DATA_CACHE_DIR=os.path.join(root, "cache-b")))
+            "sums": sums, "handle": json.dumps(wire),
+            "gets": [dict(label="blobd", go=cue["go-blobd"],
+                          done=cue["done-blobd"],
+                          cache=os.path.join(root, "cache-b"),
+                          port=free_tcp_port()),
+                     dict(label="pod_route", go=cue["go-route"],
+                          done=cue["done-route"],
+                          cache=os.path.join(root, "cache-b2"),
+                          port=free_tcp_port())],
+            "sync": dict(key=SYNC_KEY, dest=os.path.join(root, "sync-b"),
+                         files=files, want=sync_want, go=cue["go-sync"],
+                         done=cue["done-sync"], go2=cue["go-sync2"])},
+            dict(base, KT_PEER_WAIT_S="30"))
+        # (b) the HF directory pushed while A fetches and B loads
+        t = time.perf_counter()
+        push = ds.put(SYNC_KEY, hf_dir, store_url=store.url)
+        push_s = time.perf_counter() - t
+        t = time.perf_counter()
+        push_again = ds.put(SYNC_KEY, hf_dir, store_url=store.url)
+        push_again_s = time.perf_counter() - t
+        if push != {"files": files, "uploaded": files,
+                    "uploaded_bytes": dir_bytes}:
+            fail(f"data_plane: sync: the first push gave {push}")
+        if push_again["uploaded"] != 0:
+            fail(f"data_plane: sync: a second push gave {push_again}")
         a = finish_data_plane_pod("data_plane pod A", pod_a)
-        cache_srv = _CacheServer(os.path.join(root, "cache-a"), port_a)
-        with open(go_b, "w"):
-            pass
+        # (a) A's pod route is down (nothing listens on its port): B's
+        # bytes can come from A's ktblobd or, failing it, the store only
+        t_a = time.perf_counter()
+        touch(cue["go-blobd"])
+        wait_for_pod_step("data_plane pod B", pod_b, cue["done-blobd"])
+        blobd_s = time.perf_counter() - t_a
+        daemon.terminate()
+        daemon.wait(timeout=10)
+        daemon = None
+        # the daemon is gone: a new member routed to A falls back to A's
+        # pod route, which a cache server over A's directory stands in for
+        cache_srv = _CacheServer(cache_a, port_a)
+        touch(cue["go-route"])
+        wait_for_pod_step("data_plane pod B", pod_b, cue["done-route"])
+        t_b = time.perf_counter()
+        touch(cue["go-sync"])
+        wait_for_pod_step("data_plane pod B", pod_b, cue["done-sync"])
+        name, body = SYNC_ADDED
+        with open(os.path.join(hf_dir, name), "w") as f:
+            json.dump(body, f, indent=2)
+        added = ds.put(SYNC_KEY, hf_dir, store_url=store.url)
+        if added != {"files": files + 1, "uploaded": 1, "uploaded_bytes":
+                     os.path.getsize(os.path.join(hf_dir, name))}:
+            fail(f"data_plane: sync: after one added file the push gave {added}")
+        touch(cue["go-sync2"])
         b = finish_data_plane_pod("data_plane pod B", pod_b)
+        sync_s = push_s + push_again_s + time.perf_counter() - t_b
+        t_c = time.perf_counter()
+        xregion = drive_xregion(torch, store, sums, nbytes, card)
+        xregion["seconds"] = time.perf_counter() - t_c
     finally:
         for pod in (pod_a, pod_b):
             if pod is not None and pod[0].poll() is None:
                 pod[0].kill()
                 pod[0].wait()
+        if daemon is not None:
+            daemon.kill()
+            daemon.wait()
+        if build[0].poll() is None:
+            build[0].kill()
+            build[0].wait()
         if handle is not None:
             staging.release_handle(handle)
         if cache_srv is not None:
@@ -6913,32 +7297,66 @@ def drive_data_plane(card):
     if any(os.path.exists(f"/dev/shm/{shm_prefix}-{i}")
            for i in range(len(staged_paths))):
         fail("data_plane: a staged segment outlived its last release")
-    src_a, src_b = a["bytes_by_source"], b["bytes_by_source"]
+    src_a = a["store"]["bytes_by_source"]
     if src_a.get("store", 0) != nbytes + index_bytes:
         fail(f"data_plane: pod A fetched {src_a}, want the tree and its index "
              f"({nbytes} + {index_bytes}) from the store")
-    if src_b.get("peer", 0) != nbytes + index_bytes or \
-            src_b.get("store", 0) > index_bytes:
-        fail(f"data_plane: pod B fetched {src_b}, want {nbytes} + "
-             f"{index_bytes} from its peer and at most {index_bytes} from the "
-             "store")
+    for step in ("blobd", "pod_route"):
+        src_b = b[step]["bytes_by_source"]
+        if src_b.get("peer", 0) != nbytes + index_bytes or \
+                src_b.get("store", 0) > index_bytes:
+            fail(f"data_plane: pod B's {step} get fetched {src_b}, want "
+                 f"{nbytes} + {index_bytes} from its peer and at most "
+                 f"{index_bytes} from the store")
+    sb = b["sync"]
     gb = nbytes / 1e9
-    rates = dict(put=gb / put_s, get_cuda=gb / a["get_s"],
-                 peer_get_cuda=gb / b["get_s"],
+    rates = dict(put=gb / put_s, get_cuda=gb / a["store"]["get_s"],
+                 peer_get_blobd=gb / b["blobd"]["get_s"],
+                 peer_get_pod_route=gb / b["pod_route"]["get_s"],
                  stage=staged_bytes / 1e9 / stage_s,
                  load_staged_cuda=staged_bytes / 1e9 / b["load_staged_s"],
-                 load_staged_mesh=staged_bytes / 1e9 / b["load_staged_mesh_s"])
+                 load_staged_mesh=staged_bytes / 1e9 / b["load_staged_mesh_s"],
+                 sync_push=dir_bytes / 1e9 / push_s,
+                 sync_pull=dir_bytes / 1e9 / sb["pull_s"],
+                 load_hf=sync_bytes / 1e9 / sb["load_hf_s"],
+                 xregion_sweep=xregion["sweep_gb_per_s"],
+                 xregion_west_get=xregion["west_get_gb_per_s"])
     rec = dict(tree_bytes=nbytes, index_bytes=index_bytes, leaves=len(leaves),
                staged_bytes=staged_bytes, shm_free_bytes=shm_free,
-               gb_per_s=rates, bytes_by_source=dict(a=src_a, b=src_b),
-               seconds=dict(put=put_s, get=a["get_s"], peer_get=b["get_s"],
+               gb_per_s=rates,
+               bytes_by_source=dict(a=src_a,
+                                    b_blobd=b["blobd"]["bytes_by_source"],
+                                    b_pod_route=b["pod_route"]["bytes_by_source"]),
+               seconds=dict(put=put_s, get=a["store"]["get_s"],
+                            peer_get_blobd=b["blobd"]["get_s"],
+                            peer_get_pod_route=b["pod_route"]["get_s"],
                             stage=stage_s, load_staged=b["load_staged_s"],
-                            load_staged_mesh=b["load_staged_mesh_s"]),
-               wall_s=time.perf_counter() - t_phase)
+                            load_staged_mesh=b["load_staged_mesh_s"],
+                            a_blobd=blobd_s, b_sync=sync_s,
+                            c_xregion=xregion["seconds"]),
+               sync=dict(dir_bytes=dir_bytes, tensor_bytes=sync_bytes,
+                         write_s=sync_write_s, push=push, push_s=push_s,
+                         push_again=push_again, push_again_s=push_again_s,
+                         added=added, pod=sb),
+               xregion=xregion, wall_s=time.perf_counter() - t_phase)
+    print(f"data_plane: (a) blobd: pod B's peer get {b['blobd']['get_s']:.2f}s "
+          f"({rates['peer_get_blobd']:.3f} GB/s) from A's ktblobd, beside "
+          f"{b['pod_route']['get_s']:.2f}s ({rates['peer_get_pod_route']:.3f} "
+          f"GB/s) over A's pod route; step {blobd_s:.2f}s card={card}",
+          flush=True)
+    print(f"data_plane: (b) ktsync: {dir_bytes} bytes in {files} files, push "
+          f"{push_s:.2f}s ({rates['sync_push']:.3f} GB/s), again "
+          f"{push_again_s:.2f}s (0 uploaded), pull in pod B {sb['pull_s']:.2f}s "
+          f"({rates['sync_pull']:.3f} GB/s), load_hf {sb['load_hf_s']:.2f}s "
+          f"bitwise the seed tree, pull again {sb['pull_again']}, one added "
+          f"file {added} / {sb['pull_added']}; {sync_s:.2f}s card={card}",
+          flush=True)
     print(f"data_plane: {nbytes} bytes in {len(leaves)} leaves (Llama-3-8B at "
           f"{DATA_PLANE_LAYERS} layers), /dev/shm free {shm_free}; GB/s "
-          f"{json.dumps(rates)}; bytes by source A {src_a} B {src_b}; phase "
-          f"wall {rec['wall_s']:.1f}s card={card}", flush=True)
+          f"{json.dumps(rates)}; bytes by source {json.dumps(rec['bytes_by_source'])}; "
+          f"seconds (a) {blobd_s:.1f} (b) {sync_s:.1f} (c) "
+          f"{xregion['seconds']:.1f}; phase wall {rec['wall_s']:.1f}s "
+          f"card={card}", flush=True)
     return rec
 
 

@@ -1,6 +1,7 @@
 """The port's data-store client: its copy of
 ``kubetorch_tpu/data_store/commands.py`` (``put``/``get``/``ls``/``rm``,
-``put_json``/``get_json``, the broadcast window, the P2P broadcast tree),
+``put_json``/``get_json``, the broadcast window, the P2P broadcast tree,
+directory trees through ktsync, ``sync.py``),
 the store protocol its checkpoint and rollout take, and
 :class:`HttpStore`, that protocol over a store by URL.
 
@@ -42,14 +43,21 @@ leaf comes from the pod cache (``peer_cache.py``), then the parent's
 blake2b (a corrupt cache entry is evicted; a corrupt or dead parent is
 reported on ``/route/failed`` and, up to ``KT_ROUTE_RETRIES`` times, a
 fresh parent is asked for); each fetched leaf is cached, and one
-``/route/complete`` makes this pod a parent. Per-source bytes are on
-``bytes_by_source``; each fetch is a ``store.fetch`` span and counts in
-``kt_store_fetches_total{source}``, its bytes in the port's
-``kt_store_fetch_bytes_total{source}``. Peer mode is on inside a pod
-(``POD_IP`` set) unless ``peer=`` says otherwise. Left out: the parent's
-``ktblobd`` route (every peer byte comes over ``/_kt/data/``), and
-directory trees (``put`` of a directory and ``get`` of a tree key raise:
-ktsync is not ported).
+``/route/complete`` makes this pod a parent. A parent that runs the
+fabric's ``ktblobd`` (its address ``http://$POD_IP:$KT_BLOBD_PORT``, sent
+as ``self_blob_url`` on ``/route`` and as ``blob_url`` on
+``/route/complete``) serves its cache entries' files from the daemon:
+the child asks ``/blob/<entry hash>.json`` (its key must match) and then
+``.bin``, and takes the parent's ``/_kt/data/`` only when the daemon
+cannot be reached or answers garbage. Per-source bytes are on
+``bytes_by_source`` (a daemon's bytes count as ``peer``); each fetch is a
+``store.fetch`` span and counts in ``kt_store_fetches_total{source}``,
+its bytes in the port's ``kt_store_fetch_bytes_total{source}``. Peer mode
+is on inside a pod (``POD_IP`` set) unless ``peer=`` says otherwise.
+
+**Directory trees**: ``put`` of a directory pushes it with ktsync
+(``sync.push_tree``), and ``get(key, dest=)`` of a key whose
+``/tree/<key>/manifest`` answers pulls it there (``sync.pull_tree``).
 
 **The store protocol** that ``train/checkpoint.py`` and
 ``serve/rollout.py`` take as ``store=`` (every caller goes through
@@ -294,9 +302,8 @@ def put(key: str, src: Any, store_url: Optional[str] = None,
     if isinstance(src, (str, os.PathLike)):
         path = os.fspath(src)
         if os.path.isdir(path):
-            raise DataStoreError(
-                f"put: {path!r} is a directory; directory trees ride "
-                "ktsync, which the port does not carry")
+            from .sync import push_tree
+            return push_tree(url, key, path)
         if os.path.isfile(path):
             with open(path, "rb") as f:
                 return _kv_put(url, key, f.read(), {"kind": "file"})
@@ -417,6 +424,7 @@ class _RoutedFetcher:
         self.enabled = (bool(os.environ.get("POD_IP"))
                         if peer is None else bool(peer))
         self.peer_url: Optional[str] = None
+        self.peer_blob_url: Optional[str] = None
         self._resolved = False
         self._fetched = False
         self._deadline: Optional[float] = None
@@ -453,6 +461,16 @@ class _RoutedFetcher:
             return None
         return f"http://{ip}:{_server_port()}"
 
+    @staticmethod
+    def _self_blob_url() -> Optional[str]:
+        """This pod's ``ktblobd`` address (the fabric's pod server spawns
+        the daemon and exports ``KT_BLOBD_PORT``), None without one."""
+        ip = os.environ.get("POD_IP")
+        port = os.environ.get("KT_BLOBD_PORT")
+        if ip and port:
+            return f"http://{ip}:{port}"
+        return None
+
     def _resolve(self) -> None:
         if not self.enabled:
             return
@@ -464,9 +482,11 @@ class _RoutedFetcher:
                 r = self._sess().post(
                     f"{self._coord_url()}/route",
                     json={"key": self.key, "self_url": self._self_url(),
-                          "self_blob_url": None}, timeout=10)
-                if r.status_code == 200 and r.json().get("source") == "peer":
-                    self.peer_url = r.json()["url"]
+                          "self_blob_url": self._self_blob_url()}, timeout=10)
+                body = r.json() if r.status_code == 200 else {}
+                if body.get("source") == "peer":
+                    self.peer_url = body["url"]
+                    self.peer_blob_url = body.get("blob_url")
             except netpool.TRANSPORT_ERRORS:
                 self.peer_url = None
 
@@ -524,8 +544,7 @@ class _RoutedFetcher:
             if peer is None:
                 break
             try:
-                r = self._sess().get(f"{peer}/_kt/data/{netpool.urlkey(ck)}",
-                                     timeout=timeout)
+                r = self._fetch_from_peer(ck, timeout)
             except netpool.TRANSPORT_ERRORS:
                 if self._evict_peer(peer):
                     continue
@@ -590,6 +609,7 @@ class _RoutedFetcher:
             if self.peer_url != peer:
                 return False
             self.peer_url = None
+            self.peer_blob_url = None
             self._deadline = None
             reroute = self._reroutes < self._max_reroutes
             if reroute:
@@ -601,6 +621,37 @@ class _RoutedFetcher:
         except netpool.TRANSPORT_ERRORS:
             pass
         return reroute
+
+    def _fetch_from_peer(self, subkey: str, timeout: float):
+        """One attempt at the parent: its ``ktblobd`` first, when it runs
+        one (the entry's meta, then its bytes), else its ``/_kt/data/``.
+        The daemon's 404 is the pod route's "not yet". A daemon that cannot
+        be reached or answers garbage turns the fast path off for this
+        fetcher; the parent is then judged by its pod route."""
+        peer_url, blob_url = self.peer_url, self.peer_blob_url
+        if peer_url is None:
+            raise ConnectionError("the parent was evicted by another worker")
+        if blob_url is not None:
+            from .peer_cache import entry_hash
+            h = entry_hash(subkey)
+            try:
+                # the meta lands last in cache_put, so its presence says
+                # the .bin is whole
+                rm = self._sess().get(f"{blob_url}/blob/{h}.json", timeout=30)
+                if rm.status_code == 200:
+                    entry = json.loads(rm.content)
+                    if entry.get("key") == subkey:
+                        rb = self._sess().get(f"{blob_url}/blob/{h}.bin",
+                                              timeout=timeout)
+                        if rb.status_code == 200:
+                            return _CachedResponse(rb.content,
+                                                   entry.get("meta", {}))
+                elif rm.status_code == 404:
+                    return rm
+            except (*netpool.TRANSPORT_ERRORS, ValueError, AttributeError):
+                self.peer_blob_url = None
+        return self._sess().get(f"{peer_url}/_kt/data/{netpool.urlkey(subkey)}",
+                                timeout=timeout)
 
     def _cache(self, subkey: str, r) -> None:
         if not self.enabled or self._self_url() is None:
@@ -624,7 +675,8 @@ class _RoutedFetcher:
         try:
             self._sess().post(f"{self._coord_url()}/route/complete",
                               json={"key": self.key, "url": self_url,
-                                    "blob_url": None}, timeout=10)
+                                    "blob_url": self._self_blob_url()},
+                              timeout=10)
         except netpool.TRANSPORT_ERRORS:
             pass
 
@@ -644,7 +696,8 @@ def get(key: str, dest: Optional[str] = None, store_url: Optional[str] = None,
         peer: Optional[bool] = None) -> Any:
     """Fetch ``key``: a pytree (numpy, tensors on ``device``, or DTensors
     on ``mesh`` by ``rules``; the module docstring), a file (to ``dest``,
-    else its bytes) or an array. Inside a pod, bytes ride the broadcast
+    else its bytes), an array, or a directory tree (into ``dest``, which
+    it needs; returns the pull's stats). Inside a pod, bytes ride the broadcast
     tree; ``peer=False`` reads the store only. The key's kind is probed
     with HEADs on the store first."""
     if (mesh is None) != (rules is None):
@@ -666,8 +719,10 @@ def get(key: str, dest: Optional[str] = None, store_url: Optional[str] = None,
         "GET", f"/tree/{netpool.urlkey(key)}/manifest", key=key,
         timeout=netpool.store_timeout(60))
     if r.status_code == 200:
-        raise DataStoreError(f"get: {key!r} is a directory tree; trees ride "
-                             "ktsync, which the port does not carry")
+        if not dest:
+            raise DataStoreError(f"get: {key!r} is a directory tree; pass dest=")
+        from .sync import pull_tree
+        return pull_tree(url, key, dest)
     # the store lost the key, but parents may hold it (the tail of a
     # rolling broadcast): probe the tree for the index, then the raw key
     if fetcher.enabled:

@@ -18,6 +18,13 @@ keeps, under the JAX names and environment:
   ``store.request`` span, and a 507 raised as a typed ``StoreFullError``
   rebuilt from the server's body.
 
+Bodies stream both ways, as ktsync's do in the JAX package: a
+``data_factory`` gives each attempt a fresh body (an open file streams
+from disk and is reopened on a retry, since a consumed file cannot be
+sent again), and ``stream=True`` hands back a 200 whose body the caller
+reads in chunks (:meth:`StreamedResponse.iter_content`), so a transfer
+holds O(chunk) of memory per worker.
+
 A transport failure raises one of :data:`TRANSPORT_ERRORS` (``OSError``,
 which holds refused and reset connections and timeouts, and
 ``http.client.HTTPException``); callers catch that where the JAX package
@@ -156,13 +163,63 @@ class Response:
         return self.content.decode("utf-8", "replace")
 
 
+class StreamedResponse:
+    """A 200 whose body is still on the wire (``request(stream=True)``):
+    read it once, through :meth:`iter_content` or ``content``. Its
+    connection serves the thread's next request only once the body is
+    read to its end; :meth:`close` drops a connection left mid-body."""
+
+    def __init__(self, status_code: int, headers, raw, conn):
+        self.status_code = status_code
+        self.headers = headers
+        self._raw = raw
+        self._conn = conn
+
+    def iter_content(self, chunk_size: int = 1 << 20):
+        """The body in chunks of at most ``chunk_size`` bytes."""
+        try:
+            while True:
+                block = self._raw.read(chunk_size)
+                if not block:
+                    break
+                yield block
+        finally:
+            self.close()
+
+    @property
+    def content(self) -> bytes:
+        return b"".join(self.iter_content())
+
+    def json(self):
+        return _json.loads(self.content)
+
+    def close(self) -> None:
+        if self._conn is None:
+            return
+        if not self._raw.isclosed() or self._raw.will_close:
+            self._conn.close()
+        self._conn = None
+
+
+def _body_length(body) -> Optional[int]:
+    """Bytes left in a file body (sent with ``Content-Length``, as
+    ``requests`` sends a file), None when it is not a regular file."""
+    try:
+        return os.fstat(body.fileno()).st_size - body.tell()
+    except (AttributeError, OSError, ValueError):
+        return None
+
+
 class Session:
     """Keep-alive connections of one thread, one per (scheme, host).
 
-    ``request(method, url, data=, json=, headers=, params=, timeout=)``
-    sends one request and reads the whole response. A request that fails
-    on a connection kept from an earlier one (the server closed it while
-    idle) is sent once more on a fresh connection; any other failure
+    ``request(method, url, data=, json=, headers=, params=, timeout=,
+    data_factory=, stream=)`` sends one request and reads the whole
+    response, or with ``stream=True`` returns a 200 as a
+    :class:`StreamedResponse` (any other status is read whole). A request
+    that fails on a connection kept from an earlier one (the server closed
+    it while idle) is sent once more on a fresh connection, its body made
+    again by ``data_factory`` when one is given; any other failure
     raises."""
 
     def __init__(self):
@@ -173,7 +230,8 @@ class Session:
         if conn is None:
             cls = (http.client.HTTPSConnection if scheme == "https"
                    else http.client.HTTPConnection)
-            conn = self._conns[(scheme, netloc)] = cls(netloc, timeout=timeout)
+            conn = self._conns[(scheme, netloc)] = cls(
+                netloc, timeout=timeout, blocksize=1 << 20)
         conn.timeout = timeout
         if conn.sock is not None:
             conn.sock.settimeout(timeout)
@@ -182,7 +240,9 @@ class Session:
     def request(self, method: str, url: str, *, data=None, json=None,
                 headers: Optional[Dict[str, str]] = None,
                 params: Optional[Dict[str, str]] = None,
-                timeout: Optional[float] = None) -> Response:
+                timeout: Optional[float] = None,
+                data_factory: Optional[Callable[[], object]] = None,
+                stream: bool = False):
         parts = urlsplit(url)
         path = parts.path or "/"
         query = parts.query
@@ -194,14 +254,22 @@ class Session:
         if json is not None:
             data = _json.dumps(json).encode()
             hdrs.setdefault("Content-Type", "application/json")
-        if data is None and method in ("POST", "PUT"):
-            data = b""
         for fresh in (False, True):
+            if data_factory is not None:
+                data = data_factory()
+            if data is None and method in ("POST", "PUT"):
+                data = b""
+            size = _body_length(data)
+            if size is not None:
+                hdrs["Content-Length"] = str(size)
             conn = self._conn(parts.scheme, parts.netloc, timeout)
             reused = conn.sock is not None
             try:
                 conn.request(method, path, body=data, headers=hdrs)
                 resp = conn.getresponse()
+                if stream and resp.status == 200:
+                    return StreamedResponse(resp.status, resp.headers, resp,
+                                            conn)
                 body = resp.read()
             except TRANSPORT_ERRORS:
                 conn.close()
@@ -282,7 +350,8 @@ def _breaker_for(url: str) -> Optional[CircuitBreaker]:
 
 
 def request(method: str, url: str, *, timeout: Optional[float] = None,
-            **kwargs) -> Response:
+            data_factory: Optional[Callable[[], object]] = None,
+            **kwargs):
     """``session().request`` with the store retry policy applied.
 
     Every store op is content-addressed (puts are keyed by hash, gets and
@@ -290,12 +359,15 @@ def request(method: str, url: str, *, timeout: Optional[float] = None,
     with exponential backoff and full jitter, honouring ``Retry-After``.
     Other statuses return at once. A 507 (store disk full) is not retried:
     it raises :class:`StoreFullError`, rebuilt from the server's body when
-    it carries one."""
+    it carries one. ``data_factory`` makes the body anew for every
+    attempt (an open file is consumed by the attempt that failed);
+    ``stream=True`` returns a 200 unread (:class:`StreamedResponse`)."""
     breaker = _breaker_for(url)
 
     def attempt(_i):
         t = timeout if timeout is not None else store_timeout()
-        return session().request(method, url, timeout=t, **kwargs)
+        return session().request(method, url, timeout=t,
+                                 data_factory=data_factory, **kwargs)
 
     def resp_retry(resp):
         if resp.status_code not in RETRYABLE_STATUSES:
@@ -318,7 +390,9 @@ def request(method: str, url: str, *, timeout: Optional[float] = None,
             response_retry_delay=resp_retry, breaker=breaker)
         if sp:
             sp.set_attr("status", resp.status_code)
-            sp.set_attr("bytes", len(resp.content))
+            sp.set_attr("bytes", (resp.headers.get("Content-Length")
+                                  if isinstance(resp, StreamedResponse)
+                                  else len(resp.content)))
     if resp.status_code == 507:
         raise _store_full_error(resp, url)
     return resp

@@ -205,7 +205,9 @@ class StoreRing:
         or still answers 502/503/504; a stale-epoch 409 refreshes the view
         and re-routes (twice at most). ``verify(resp)`` runs on every 200:
         a ``DataCorruptionError`` fails the replica over like a dead one.
-        The last candidate's outcome surfaces unchanged."""
+        The last candidate's outcome surfaces unchanged. ``data_factory``
+        and ``stream`` go through to :func:`netpool.request`: each attempt
+        on each candidate gets a fresh body."""
         refreshes = 0
         while True:
             bases = self.nodes_for(key) if key is not None \

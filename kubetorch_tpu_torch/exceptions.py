@@ -1,9 +1,9 @@
 """Typed exceptions of the port, copies of their counterparts in
 ``kubetorch_tpu/exceptions.py`` (``KubetorchError``, ``RolloutError``,
 ``StaleStageEpochError``, the compile cache's ``AOTCacheMissError`` and
-``AOTCacheCorruptError``, the data store's ``DataStoreError``,
-``StoreFullError``, ``RingEpochMismatch`` and ``DataCorruptionError``, and
-``CircuitOpenError``), with the same names, attributes and message texts,
+``AOTCacheCorruptError``, ktsync's ``SyncError``, the data store's
+``DataStoreError``, ``StoreFullError``, ``RingEpochMismatch`` and
+``DataCorruptionError``, and ``CircuitOpenError``), with the same names, attributes and message texts,
 so a caller can handle either package's refusal alike.
 :func:`rehydrate_exception` rebuilds one of these from the JSON body a
 store server sends with a 409 or a 507 (the JAX package's
@@ -102,6 +102,11 @@ class AOTCacheCorruptError(AOTCacheMissError):
         self.actual = actual
 
 
+class SyncError(KubetorchError):
+    """Code/data synchronisation to or from the cluster failed (a directory
+    tree's push or pull, ``data_store/sync.py``)."""
+
+
 class DataStoreError(KubetorchError):
     """Data-store operation (put/get/ls/rm/broadcast) failed."""
 
@@ -162,8 +167,8 @@ class CircuitOpenError(KubetorchError):
 
 
 _REGISTRY = {cls.__name__: cls for cls in (
-    KubetorchError, DataStoreError, StoreFullError, RingEpochMismatch,
-    DataCorruptionError, CircuitOpenError)}
+    KubetorchError, SyncError, DataStoreError, StoreFullError,
+    RingEpochMismatch, DataCorruptionError, CircuitOpenError)}
 
 
 def rehydrate_exception(data: Dict[str, Any]) -> BaseException:

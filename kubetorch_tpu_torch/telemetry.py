@@ -6,8 +6,8 @@ metric names and exposition text:
 - a labelled counter (``inc``, ``value``, one line per label set) and
   ``counter()``; the rollout's ``kt_rollout_bytes_total{source}`` and
   ``kt_rollout_rollbacks_total{reason}``;
-- a label-less gauge (``set``, ``value``, its own Prometheus lines) and
-  ``gauge()``'s get-or-create registry; ``spec_metrics()``, the
+- a gauge, label-less or labelled (``set``, ``value``, one line per label
+  set) and ``gauge()``'s get-or-create registry; ``spec_metrics()``, the
   speculative engine's (``kt_spec_accept_rate``, ``kt_spec_draft_len``);
 - a labelled histogram (``observe``, ``count``, cumulative ``_bucket``
   lines with ``le``, ``_sum``, ``_count``), ``histogram()``, ``timed()``
@@ -16,7 +16,8 @@ metric names and exposition text:
   the ``kt_train_mfu`` gauge), ``pipeline_metrics()`` (the elastic
   pipeline's ``kt_pipeline_*`` family) and ``cold_start_metrics()`` (a
   replica's boot by phase, ``kt_cold_start_*``, and the compile cache's
-  ``kt_aot_cache_total{result}``).
+  ``kt_aot_cache_total{result}``) and ``xregion_metrics()`` (the
+  cross-region replicator's ``kt_store_xregion_*{region}``).
 
 And spans (``span``, ``current_span``, ``current_header``, ``add_event``,
 the ``TraceRing`` ``RING``) with the JAX package's wire format: the
@@ -25,9 +26,9 @@ manifest carries, so a span opened here parents onto a trace the JAX
 package started and the reverse. ``KT_TRACE=0`` turns tracing off: ``span``
 then returns one shared no-op span and allocates nothing.
 
-The rest of the JAX module (labelled gauges, the registry's exposition
-text, the waterfall, span shipping between processes) waits for the
-port's benchmark work.
+The rest of the JAX module (the registry's exposition text, the
+waterfall, span shipping between processes) waits for the port's
+benchmark work.
 """
 
 from __future__ import annotations
@@ -115,26 +116,19 @@ class Counter:
         return out
 
 
-class Gauge:
+class Gauge(Counter):
+    """A value that is set, not only added to; without labels it renders
+    its one line even before it is first set."""
+
     kind = "gauge"
 
-    def __init__(self, name: str, help: str):
-        self.name = name
-        self.help = help
-        self._lock = threading.Lock()
-        self._value = 0.0
+    def __init__(self, name: str, help: str, labelnames: Tuple[str, ...] = ()):
+        super().__init__(name, help, labelnames)
 
-    def set(self, value: float) -> None:
+    def set(self, value: float, **labels: Any) -> None:
+        key = self._key(labels)
         with self._lock:
-            self._value = float(value)
-
-    def value(self) -> float:
-        with self._lock:
-            return self._value
-
-    def render(self) -> List[str]:
-        return _header(self.name, self.help, self.kind) + [
-            f"{self.name} {_format_value(self.value())}"]
+            self._values[key] = float(value)
 
 
 # Default latency buckets: sub-ms (header parse), request-scale, and the
@@ -207,7 +201,7 @@ def _get_or_create(cls, name: str, *args, **kwargs):
         m = _REGISTRY.get(name)
         if m is None:
             m = _REGISTRY[name] = cls(name, *args, **kwargs)
-        elif not isinstance(m, cls):
+        elif type(m) is not cls:
             raise ValueError(f"metric {name!r} already registered as {m.kind}")
         return m
 
@@ -216,8 +210,8 @@ def counter(name: str, help: str = "", labels=()) -> Counter:
     return _get_or_create(Counter, name, help, tuple(labels))
 
 
-def gauge(name: str, help: str = "") -> Gauge:
-    return _get_or_create(Gauge, name, help)
+def gauge(name: str, help: str = "", labels=()) -> Gauge:
+    return _get_or_create(Gauge, name, help, tuple(labels))
 
 
 def histogram(name: str, help: str = "", labels=(),
@@ -392,6 +386,37 @@ def cold_start_metrics() -> Dict[str, Union[Counter, Gauge, Histogram]]:
                 labels=("result",)),
         }
     return _COLD_START_METRICS
+
+
+_XREGION_METRICS: Optional[Dict[str, Union[Counter, Gauge]]] = None
+
+
+def xregion_metrics() -> Dict[str, Union[Counter, Gauge]]:
+    """Get-or-create the cross-region replicator's family under the JAX
+    package's names, each by target ``region``: the age of the oldest
+    commit a region still lacks, the keys pending for it, keys pushed and
+    failed pushes (``federation/replication.py:XRegionReplicator``)."""
+    global _XREGION_METRICS
+    if _XREGION_METRICS is None:
+        _XREGION_METRICS = {
+            "lag": gauge(
+                "kt_store_xregion_lag_seconds",
+                "Age of the oldest local commit not yet replicated to the "
+                "region", labels=("region",)),
+            "pending": gauge(
+                "kt_store_xregion_pending_keys",
+                "Keys awaiting cross-region replication to the region",
+                labels=("region",)),
+            "pushed": counter(
+                "kt_store_xregion_pushed_total",
+                "Keys replicated cross-region, by target region",
+                labels=("region",)),
+            "errors": counter(
+                "kt_store_xregion_errors_total",
+                "Cross-region replication attempts that failed (partition, "
+                "node loss)", labels=("region",)),
+        }
+    return _XREGION_METRICS
 
 
 # ---------------------------------------------------------------------------
