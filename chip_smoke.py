@@ -99,6 +99,27 @@
    payload per request. Prints kt_rollout_seconds per phase, the longest
    token gap of a stream across the swap, the ledger, publish and
    rollback times, __kt_metrics__ and aot_stats.
+   Then the continuous-learning loop closed on the same params
+   ("flywheel", kubetorch_tpu_torch/flywheel/): (a) a bf16 engine (its own
+   copies of wq/wk/wv/wo, which its swaps write) serves the 12 requests
+   with its feedback_sink on engine_feedback_hook(FeedbackLedger) over the
+   stand-in HTTP store, the hook timed on the step thread; the ledger's
+   hashes must be the payloads', one for one; (b) a Harvester over an
+   acquired LedgerCursor takes one rank-16 lora_loss step per 4 harvested
+   prompts (A1, A2, A3), commits the cursor state before each
+   Checkpointer save onto MemStore, and a drain asked for after its
+   second step must vacate inside the grace; a clean second cycle drains
+   the ledger: consumed == the 12 acked records, a re-appended payload
+   deduplicated, every hash folded once; (c) the Promoter, the engine as
+   the canary replica under WeightRollout and a scripted router: the
+   trained adapter merged is promoted (tokens == a fresh engine's over the
+   merged tree, at the canary and after the fleet manifest), a poisoned
+   delta (the same steps ascending the loss) is gate_rejected on the
+   replayed rows (no manifest, tokens unchanged), and again with the eval
+   gate blinded and a regressed canary is rolled_back
+   (manifest at the promoted fingerprint, baseline unmoved, tokens as
+   before); kt_flywheel_gate_total 1/1/1, exact A1/A2/A3/B1 counts, the
+   phase's parts and a feedback-to-weights-live time printed.
    Then speculative decoding (SpeculativeEngine, spec_k 4, the same grid
    with prefill_chunk 512) with a draft of Llama-3.2-1B's shape (bf16,
    its own seed), and again with the target as its own draft: the 12
@@ -707,6 +728,26 @@ B1_DRAFT_SHAPES = ("a", "d")
 # the rollout phase: 8 requests of 40-token prompts decode this many
 # tokens each across the live swap (~12 s of steps, the swap ~1 s)
 ROLLOUT_FLIGHT_NEW = 256
+# the "flywheel" phase (after "rollout", on the bf16 chain's params): the
+# continuous-learning loop closed around a serving engine, a LoRA trainer
+# (lora_config(), lora_init's zero B, adamw(FLY_LR)) and the canary
+# rollout. The engine serves the 12 ENGINE_PROMPT_LENS requests of MAX_NEW
+# tokens with its feedback sink on a FeedbackLedger over the stand-in HTTP
+# store (sample rate 1); a Harvester folds FLY_BATCH records a step, each
+# prompt tiled to FLY_SEQ + 1 tokens, one row each, and a drain is asked
+# for after FLY_DRAIN_AT steps. The Promoter's eval (lower is better)
+# replays the 12 harvested rows: on random weights a batch the trainer
+# never saw gives every candidate the same loss within noise, so a gate
+# on it could tell nothing apart; FLY_LR makes the 3 steps move the
+# replayed loss past the gate tolerance FLY_GATE_TOL (JAX's default).
+# The bad candidate is a poisoned delta: the same steps on the same rows
+# ascending the loss (on random weights a wrecked or scaled-up adapter
+# lands near the base model's loss, inside the gate's tolerance); the
+# harvest policy's SLO FLY_SLO_MS on the engine's queue wait, a cycle
+# bounded by FLY_CYCLE_S; the probe prompts LORA_SERVE_PROMPTS
+FLY_SEED, FLY_SEQ, FLY_BATCH, FLY_DRAIN_AT = 22, 512, 4, 2
+FLY_LR, FLY_GATE_TOL = 1e-2, 0.02
+FLY_SLO_MS, FLY_GRACE_S, FLY_CYCLE_S = 5000.0, 20.0, 300.0
 Q4_WINDOW_SHAPES = tuple((8 * (2 * SPEC_K + 1), k, n) for _, k, n in Q4_SHAPES[:4])
 # the "hf_openai" phase: a checkpoint in the layout of Meta's published
 # meta-llama/Meta-Llama-3-8B repository (its config.json, bf16 weights in
@@ -1382,6 +1423,8 @@ def drive_engine(torch, ops_attn, ops_dec, card):
     del lora_eng
     gc.collect()
     torch.cuda.empty_cache()
+    lora_train["flywheel"] = drive_flywheel(torch, ops_attn, ops_dec, params,
+                                            cfg, card)
 
     draft, dcfg = spec_draft(torch)
     spec_n, spec = {}, {}
@@ -2471,8 +2514,10 @@ class MemStore:
     commands.py) in this process's memory. It keeps the arrays it is given,
     with no serialisation copy; its index is the JAX store's (dtype, shape
     and blake2b per leaf, the structure), and a put skips every leaf whose
-    key already holds the same blake2b. ``fail_json`` makes the next
-    ``put_json`` raise: a commit marker lost mid-commit."""
+    key already holds the same blake2b, or the very array it is given
+    (unhashed: the script never writes into a host array it has put).
+    ``fail_json`` makes the next ``put_json`` raise: a commit marker lost
+    mid-commit."""
 
     def __init__(self):
         self.kv = {}          # key/path -> (array, blake2b)
@@ -2486,7 +2531,11 @@ class MemStore:
         from kubetorch_tpu_torch.data_store import commands as ds
         leaves = {}
         ds._flatten(tree, "", leaves)
-        hashes = ds.hash_leaves(leaves)
+        prev = {p: self.kv.get(f"{key}/{p}") for p in leaves}
+        same = {p: h[1] for p, h in prev.items()
+                if h is not None and h[0] is leaves[p]}
+        hashes = {**ds.hash_leaves({p: a for p, a in leaves.items()
+                                    if p not in same}), **same}
         index = {"leaves": {p: {"dtype": str(a.dtype), "shape": list(a.shape),
                                 "kind": "array", "blake2b": hashes[p]}
                             for p, a in leaves.items()},
@@ -2758,6 +2807,433 @@ def drive_rollout(torch, ops_attn, ops_dec, params, merged, cfg, prompts,
                 handoff_s=handoff_s, seconds=phases, rollback_s=rollback_s,
                 max_gap_s=max(gaps) if gaps else 0.0, memory_rise=rise,
                 phase_wall_s=wall)
+
+
+class CanaryRouter:
+    """A scripted router for the canary bake: ``canary_verdict`` answers
+    ``verdict``; pinning a replica makes that replica's rollout coordinator
+    poll at once (it converges on the canary manifest), and ``probe`` then
+    records the replica's tokens."""
+
+    def __init__(self, rollout, probe, verdict="ok"):
+        self.rollout, self.probe, self.verdict = rollout, probe, verdict
+        self.pinned = self.canary_tokens = None
+
+    def set_canary(self, replica, fraction=0.1):
+        self.pinned = (replica, fraction)
+        if self.rollout.poll_once() is None:
+            fail(f"flywheel: the canary {replica!r} took no manifest")
+        self.canary_tokens = self.probe()
+
+    def clear_canary(self):
+        self.pinned = None
+
+    def canary_verdict(self, **kw):
+        return self.verdict
+
+
+def queue_wait_ms(eng) -> float:
+    """The serving queue's wait now: the oldest queued request's age in
+    ms, 0 with none queued (the harvest policy's scrape; a mean TTFT of
+    finished requests would keep a quiet engine looking busy)."""
+    pending = list(eng._pending)
+    if not pending:
+        return 0.0
+    return (time.monotonic() - min(r.submitted_at for r in pending)) * 1e3
+
+
+def fly_rows(torch, records):
+    """One row per harvested record: its prompt tiled to FLY_SEQ + 1 tokens.
+    Returns the (tokens, targets) batch on the card."""
+    rows = np.stack([np.resize(np.asarray(r["payload"]["prompt"], np.int64),
+                               FLY_SEQ + 1) for r in records])
+    t = torch.from_numpy(rows).cuda()
+    return {"tokens": t[:, :-1], "targets": t[:, 1:]}
+
+
+def drive_flywheel(torch, ops_attn, ops_dec, params, cfg, card):
+    """The continuous-learning loop at Llama-3-8B width on the bf16 chain's
+    params (frozen; the serving engine holds copies of the four adapted
+    projections, which its swaps write): (a) collect, the engine's feedback
+    sink on the port's FeedbackLedger over the stand-in HTTP store; (b)
+    train, a Harvester over an acquired LedgerCursor, one lora_loss step
+    per FLY_BATCH records, the cursor state committed before each
+    Checkpointer save, a drain asked for mid-cycle; (c) promote, the
+    Promoter over MemStore with the engine as the canary replica: the
+    trained adapter merged (promoted), a poisoned delta (rejected by the
+    eval gate), and again with the gate blinded and the router reporting a
+    regression (rolled back). No failure is caught. Returns the phase's
+    record."""
+    from kubetorch_tpu_torch.data_store.commands import HttpStore
+    from kubetorch_tpu_torch.flywheel import (BREAK_ENV, BREAK_PROMOTE_BAD,
+                                              GATE_REJECTED, PROMOTED,
+                                              ROLLED_BACK, FeedbackLedger,
+                                              Harvester, HarvestPolicy,
+                                              LedgerCursor, Promoter,
+                                              engine_feedback_hook,
+                                              flywheel_status,
+                                              read_all_hashes, record_hash)
+    from kubetorch_tpu_torch.flywheel.promoter import eval_baseline_key
+    from kubetorch_tpu_torch.models.convert import params_to_numpy
+    from kubetorch_tpu_torch.models.llama import llama_loss_chunked
+    from kubetorch_tpu_torch.models.lora import lora_init, lora_loss, merge_lora
+    from kubetorch_tpu_torch.serve import GenerationEngine, WeightRollout
+    from kubetorch_tpu_torch.serve.rollout import read_manifest
+    from kubetorch_tpu_torch.serving import elastic
+    from kubetorch_tpu_torch.serving.host_view import from_host
+    from kubetorch_tpu_torch.telemetry import flywheel_metrics
+    from kubetorch_tpu_torch.train import (Checkpointer, adamw,
+                                           init_train_state, make_train_step,
+                                           publish_rollout, train_state_tree)
+
+    t_phase = time.perf_counter()
+    L, V = cfg.n_layers, cfg.vocab_size
+    lcfg = lora_config()
+    m = flywheel_metrics()
+
+    def counts():
+        return {k: m[k].value(service="fly")
+                for k in ("appended", "consumed", "deduped")}
+
+    def verdicts():
+        return {v: m["gate"].value(verdict=v)
+                for v in (PROMOTED, GATE_REJECTED, ROLLED_BACK)}
+
+    counts0, verdicts0 = counts(), verdicts()
+    base_hash = leaf_hashes(torch, params)
+    serving = {**params, "layers": {**params["layers"], **{
+        t: params["layers"][t].clone() for t in lcfg.targets}}}
+    eng = GenerationEngine(serving, cfg, **FEATURE_GRID, device="cuda")
+    http = _StandInStore()
+    wire = HttpStore(http.url, peer=False)
+    mem = MemStore()
+    hook = engine_feedback_hook(FeedbackLedger("fly", "replica-0", store=wire,
+                                               sample_rate=1.0))
+    sent, acked_at, stalls = [], {}, []
+
+    def sink(payload):
+        t = time.perf_counter()
+        hook(payload)
+        done = time.perf_counter()
+        stalls.append(done - t)
+        sent.append(payload)
+        acked_at[record_hash(payload)] = done
+
+    eng.feedback_sink = sink
+    rng = np.random.default_rng(FLY_SEED)
+    prompts = [rng.integers(0, V, n).tolist() for n in ENGINE_PROMPT_LENS]
+    probes = [rng.integers(0, V, n).tolist() for n in LORA_SERVE_PROMPTS]
+    fa = ops_attn.flash_attention
+    launches = Launches(ops_attn, ops_dec)
+    launches.zero()
+    fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    prefills = evals = 0
+    eng.start()
+
+    def probe():
+        nonlocal prefills
+        hs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in probes]
+        prefills += len(probes)
+        return [h.result(timeout=600) for h in hs]
+
+    try:
+        # (a) collect
+        t = time.perf_counter()
+        hs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+        prefills += len(prompts)
+        outs = [h.result(timeout=600) for h in hs]
+        collect_s = time.perf_counter() - t
+        if any(len(o) != MAX_NEW for o in outs):
+            fail(f"flywheel collect: tokens {[len(o) for o in outs]}")
+        eng.feedback_sink = None       # the probes below are not feedback
+        hashes = read_all_hashes("fly", ["replica-0"], store=wire)
+        want = [record_hash(p) for p in sent]
+        typed = all(type(x) is int for p in sent for x in p["prompt"])
+        print(f"flywheel collect: {len(prompts)} requests x {MAX_NEW} tokens "
+              f"in {collect_s:.3f}s, {len(sent)} payloads, ledger hashes == "
+              f"the payloads' one for one: {hashes == want}, prompts of "
+              f"Python ints: {typed}; the hook on the step thread over HTTP "
+              f"(2 PUTs a request): mean {sum(stalls) / len(stalls) * 1e3:.3f} "
+              f"ms, max {max(stalls) * 1e3:.3f} ms, total "
+              f"{sum(stalls) * 1e3:.3f} ms card={card}", flush=True)
+        if len(sent) != len(prompts) or hashes != want or not typed:
+            fail("flywheel collect: the ledger does not hold the engine's "
+                 "payloads one for one")
+        # a restarted replica re-samples one payload into a new segment
+        FeedbackLedger("fly", "replica-0", store=wire).append([sent[0]])
+
+        # (b) train on harvested capacity
+        t = time.perf_counter()
+        cursor = LedgerCursor("fly", ["replica-0"], store=wire)
+        epoch = cursor.acquire()
+        opt = adamw(FLY_LR)
+        state = init_train_state(lora_init(params, lcfg, seed=FLY_SEED), opt)
+        step = make_train_step(lora_loss(params, cfg, lcfg), opt)
+        ckpt = Checkpointer("fly/trainer", store=mem)
+        folded, losses, batches = {}, [], []
+
+        def train_step():
+            nonlocal state
+            batch = cursor.poll(max_records=FLY_BATCH)
+            if not batch:
+                return None
+            n = len(folded) + 1
+            batches.append(fly_rows(torch, batch))
+            state, mets = step(state, batches[-1])
+            losses.append(float(mets["loss"]))
+            cursor.commit_state(n)          # the cursor state first,
+            ckpt.flush()
+            ckpt.maybe_save(train_state_tree(state), n)   # then the commit
+            folded[n] = [r["hash"] for r in batch]
+            if n == FLY_DRAIN_AT:
+                elastic.request_drain("preempted")
+            return n
+
+        harv = Harvester(HarvestPolicy(slo_ms=FLY_SLO_MS, headroom=0.25),
+                         scrape=lambda: queue_wait_ms(eng),
+                         train_step=train_step,
+                         flush=lambda: ckpt.flush(timeout=FLY_GRACE_S),
+                         drain_grace_s=FLY_GRACE_S)
+        elastic.clear_drain()
+        try:
+            cycles = [harv.run_cycle(deadline_s=FLY_CYCLE_S)]
+            drained_flag = elastic.drain_requested()
+            drain_vacate_s = harv.last_vacate_s
+        finally:
+            elastic.clear_drain()
+        cycles.append(harv.run_cycle(deadline_s=FLY_CYCLE_S))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        got = {k: v - counts0[k] for k, v in counts().items()}
+        hs_folded = [h for n in sorted(folded) for h in folded[n]]
+        committed = ckpt.flush()
+        back = LedgerCursor("fly", ["replica-0"], store=wire)
+        back.restore(committed)
+        print(f"flywheel train: cycles {cycles}; steps {sorted(folded)}, "
+              f"losses {losses}, cursor epoch {epoch}; appended "
+              f"{got['appended']}, consumed {got['consumed']}, deduped "
+              f"{got['deduped']}; committed step {committed}, a resumed "
+              f"cursor has nothing to re-poll: {back.poll() == []}; "
+              f"{train_s:.3f}s card={card}", flush=True)
+        n_steps = len(folded)
+        if not (drained_flag and cycles[0]["reason"] == "drain"
+                and cycles[0]["steps"] == FLY_DRAIN_AT
+                and cycles[0]["within_grace"] and harv.vacates == 2):
+            fail(f"flywheel train: the drain did not vacate in grace: "
+                 f"{cycles[0]}")
+        if (cycles[1]["reason"] != "drained" or committed != n_steps
+                or sum(c["steps"] for c in cycles) != n_steps):
+            fail(f"flywheel train: the second cycle {cycles[1]}, committed "
+                 f"step {committed} of {n_steps}")
+        if not (got["consumed"] == len(prompts) == len(set(hs_folded))
+                == len(hs_folded) and set(hs_folded) == set(want)
+                and got["appended"] == len(prompts) + 1
+                and got["deduped"] == 1):
+            fail(f"flywheel train: consumed/appended/deduped {got}, "
+                 f"{len(hs_folded)} folded ({len(set(hs_folded))} distinct)")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"flywheel train: a loss is not finite: {losses}")
+        if back.positions != cursor.positions:
+            fail("flywheel train: the restored cursor is not the committed one")
+        trained = state.params
+        del state, step, cursor, back
+
+        # (c) promote through the eval gate and the canary
+        replay = fly_rows(torch, [{"payload": p} for p in sent])
+        base_host = params_to_numpy(serving)
+
+        def candidate(adapter):
+            dev = merge_lora(params, adapter, lcfg)
+            host = {**base_host, "layers": {**base_host["layers"], **{
+                t: params_to_numpy(dev["layers"][t]) for t in lcfg.targets}}}
+            return dev, host
+
+        def replayed_loss(host):
+            nonlocal evals
+            layers = {t: host["layers"][t] for t in lcfg.targets}
+            dev = {**params, "layers": {**params["layers"], **from_host(
+                layers, {t: params["layers"][t] for t in lcfg.targets})}}
+            evals += 1
+            with torch.no_grad():
+                loss = float(llama_loss_chunked(dev, replay["tokens"],
+                                                replay["targets"], cfg))
+            eval_losses.append(loss)
+            if not math.isfinite(loss):
+                fail(f"flywheel promote: a candidate's loss is {loss}")
+            return loss
+
+        eval_losses = []
+        good, good_host = candidate(trained)
+        # the poisoned delta: the same steps on the same rows, ascending
+        opt = adamw(FLY_LR)
+        state = init_train_state(lora_init(params, lcfg, seed=FLY_SEED), opt)
+        ascend = make_train_step(
+            lambda ad, x, y: -lora_loss(params, cfg, lcfg)(ad, x, y), opt)
+        for rows in batches:
+            state, _ = ascend(state, rows)
+        bad, bad_host = candidate(state.params)
+        del bad, state, ascend
+        t = time.perf_counter()
+        publish_rollout("fly", base_host, 0, store=mem)   # the fleet's start
+        wr = WeightRollout(eng, "fly", store=mem, replica_id="canary")
+        if wr.poll_once()["leaves_changed"] != 0:
+            fail("flywheel promote: the base manifest changed the replica")
+        setup_s = time.perf_counter() - t
+        router = CanaryRouter(wr, probe)
+        prom = Promoter("fly", router, store=mem, eval_fn=replayed_loss,
+                        gate_tolerance=FLY_GATE_TOL, bake_s=0.05,
+                        min_requests=1, poll_s=0.01)
+        base_tokens = probe()
+        times = {}
+
+        t = time.perf_counter()
+        v1 = prom.promote(good_host, step=n_steps)
+        t_live = time.perf_counter()
+        applied = wr.poll_once()
+        times["promoted"] = time.perf_counter() - t
+        live = sorted(t_live - acked_at[h] for h in hs_folded)
+        promoted_m = read_manifest("fly", store=mem)
+        baseline = mem.get_json(eval_baseline_key("fly"))
+        after_good = probe()
+        fresh = GenerationEngine(good, cfg, **FEATURE_GRID, device="cuda")
+        fh = [fresh.submit(p, max_new_tokens=MAX_NEW) for p in probes]
+        drain(torch, fresh)
+        fresh_tokens = [h.result(timeout=0) for h in fh]
+        fresh_prefills, fresh_steps = len(probes), fresh.stats().decode_steps
+        del fresh, good
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"flywheel promote (trained adapter): {v1}, canary tokens == a "
+              f"fresh engine's over the merged tree: "
+              f"{router.canary_tokens == fresh_tokens}, after the fleet "
+              f"manifest: {after_good == fresh_tokens} (differ from the base "
+              f"model's: {after_good != base_tokens}); fingerprint == the "
+              f"manifest's: {wr.fingerprint == promoted_m['fingerprint']}; "
+              f"baseline {baseline} (eval losses {eval_losses}); "
+              f"{times['promoted']:.3f}s "
+              f"card={card}", flush=True)
+        if not (v1 == PROMOTED and applied is not None
+                and promoted_m["phase"] == "fleet"
+                and wr.fingerprint == promoted_m["fingerprint"]
+                and router.canary_tokens == fresh_tokens == after_good
+                and baseline and baseline["step"] == n_steps):
+            fail("flywheel promote: the trained adapter did not go live as "
+                 "the merged tree")
+
+        t = time.perf_counter()
+        router.canary_tokens = None
+        v2 = prom.promote(bad_host, step=n_steps + 1)
+        times["gate_rejected"] = time.perf_counter() - t
+        rejected = prom.history[-1]
+        same_version = (read_manifest("fly", store=mem)["version"]
+                        == promoted_m["version"])
+        after_reject = probe()
+        print(f"flywheel promote (poisoned delta): {v2}, replayed loss "
+              f"{rejected.get('loss')} against baseline "
+              f"{rejected.get('baseline')} (limit {rejected.get('limit')}); "
+              f"manifest version unchanged {same_version}, tokens unchanged "
+              f"{after_reject == fresh_tokens}; {times['gate_rejected']:.3f}s",
+              flush=True)
+        if not (v2 == GATE_REJECTED and same_version
+                and router.canary_tokens is None and wr.poll_once() is None
+                and after_reject == fresh_tokens):
+            fail("flywheel promote: the bad candidate was not gate_rejected")
+
+        t = time.perf_counter()
+        os.environ[BREAK_ENV] = BREAK_PROMOTE_BAD
+        router.verdict = "regressed"
+        try:
+            v3 = prom.promote(bad_host, step=n_steps + 2)
+        finally:
+            del os.environ[BREAK_ENV]
+        rolled = wr.poll_once()
+        times["rolled_back"] = time.perf_counter() - t
+        back_m = read_manifest("fly", store=mem)
+        after_back = probe()
+        same_base = mem.get_json(eval_baseline_key("fly")) == baseline
+        print(f"flywheel promote (poisoned delta, gate blinded, canary "
+              f"regressed): {v3}; the canary served other tokens "
+              f"{router.canary_tokens != fresh_tokens}; rolled back "
+              f"{rolled and rolled['rolled_back']}, manifest {back_m['phase']} "
+              f"at the promoted fingerprint "
+              f"{back_m['fingerprint'] == promoted_m['fingerprint']}, "
+              f"baseline unmoved {same_base}, tokens == before the drill "
+              f"{after_back == after_good}; {times['rolled_back']:.3f}s",
+              flush=True)
+        if not (v3 == ROLLED_BACK and rolled and rolled["rolled_back"]
+                and back_m["phase"] == "rollback"
+                and back_m["fingerprint"] == promoted_m["fingerprint"]
+                == wr.fingerprint and same_base and after_back == after_good):
+            fail("flywheel promote: the bad canary was not rolled back")
+        # the ledger and cursor live on the HTTP store, the trees on MemStore
+        lags = {**flywheel_status("fly", ["replica-0"], store=mem)[
+            "lag_seconds"], **{k: v for k, v in flywheel_status(
+                "fly", ["replica-0"], store=wire)["lag_seconds"].items()
+                if k in ("collect", "train")}}
+    finally:
+        eng.stop()
+        http.close()
+    got = launches.read()
+    got_bwd = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    steps = eng.stats().decode_steps + fresh_steps
+    lora_steps = 2 * n_steps         # the trained and the poisoned delta
+    want_n = dict(flash_fwd=L * (prefills + fresh_prefills + evals)
+                  + 2 * L * lora_steps,
+                  decode_attention=L * steps, decode_attention_quant=0)
+    check_launches("flywheel (A1, B1, B2)", got, want_n)
+    check_launches("flywheel (A2, A3)", got_bwd,
+                   (L * lora_steps, L * lora_steps))
+    gate = {k: v - verdicts0[k] for k, v in verdicts().items()}
+    print(f"flywheel: kt_flywheel_gate_total {gate}", flush=True)
+    if gate != {PROMOTED: 1, GATE_REJECTED: 1, ROLLED_BACK: 1}:
+        fail(f"flywheel: gate verdicts {gate}")
+    if leaf_hashes(torch, params) != base_hash:
+        fail("flywheel: a leaf of the frozen base changed")
+    wall = time.perf_counter() - t_phase
+    rec = dict(launches=dict(got, flash_bwd_dq=got_bwd[0],
+                             flash_bwd_dkv=got_bwd[1]),
+               collect_s=collect_s, train_s=train_s, setup_s=setup_s,
+               promote_s=times, hook_ms=dict(
+                   mean=sum(stalls) / len(stalls) * 1e3,
+                   max=max(stalls) * 1e3, total=sum(stalls) * 1e3),
+               feedback_to_live_s=dict(p50=live[len(live) // 2],
+                                       max=live[-1], records=len(live)),
+               vacate_s=drain_vacate_s, losses=losses,
+               eval_losses=eval_losses, lag_s=lags,
+               phase_wall_s=wall)
+    print(f"flywheel: feedback-to-weights-live (a record's ack to the "
+          f"promoted fleet manifest holding its fold) p50 "
+          f"{rec['feedback_to_live_s']['p50']:.3f}s max "
+          f"{rec['feedback_to_live_s']['max']:.3f}s over {len(live)} records;"
+          f" the drain's vacate {rec['vacate_s']:.6f}s (grace {FLY_GRACE_S}s);"
+          f" stage lags {lags}", flush=True)
+    print(f"flywheel: phase wall {wall:.1f}s (collect {collect_s:.1f}, train "
+          f"{train_s:.1f}, promotion set-up {setup_s:.1f}, promotions "
+          f"{json.dumps({k: round(v, 3) for k, v in times.items()})}) "
+          f"card={card}", flush=True)
+    del eng, wr, mem, base_host, good_host, bad_host, trained, serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drive_flywheel_alone():
+    """The "flywheel" phase by itself: builds A1-A3 and B1, draws the bf16
+    chain's params (CUT_LAYERS, seed 0) and runs the phase."""
+    import torch
+
+    from kubetorch_tpu_torch.models.llama import LlamaConfig, llama_init
+    from kubetorch_tpu_torch.ops import _build
+    from kubetorch_tpu_torch.ops import attention as ops_attn
+    from kubetorch_tpu_torch.ops import decode_attention as ops_dec
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this phase needs a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        list(ex.map(_build.load, ("flash_fwd", "flash_bwd", "decode_attention")))
+    cfg = LlamaConfig.llama3_8b(n_layers=CUT_LAYERS)
+    params = llama_init(cfg, seed=0, device="cuda")
+    return drive_flywheel(torch, ops_attn, ops_dec, params, cfg, card_line())
 
 
 def drive_lora_q4(torch, ops_attn, ops_dec, ops_q4, params, cfg, card):
@@ -6562,6 +7038,9 @@ class _StandInStore:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # headers and body leave in two writes: with Nagle on, each
+            # small reply waits out the client's delayed ACK (~40 ms)
+            disable_nagle_algorithm = True
 
             def log_message(self, *args):
                 pass
@@ -8241,6 +8720,7 @@ def main() -> None:
         return {k: dict(launches=r["launches"][i]) for k, r in trains.items()}
 
     rollout_n = lora_train["rollout"]["launches"]
+    fly_n = lora_train["flywheel"]["launches"]
     audit_n = mesh["hbm_audit"]["launches"]
     checkpoint_n = train["checkpoint"]["launches"]
 
@@ -8253,6 +8733,7 @@ def main() -> None:
              lora_serve=dict(launches={w: n["flash_fwd"] for w, n in
                                        lora_train["serve"].items()}),
              rollout=dict(launches=rollout_n["flash_fwd"]),
+             flywheel=dict(launches=fly_n["flash_fwd"]),
              checkpoint=dict(launches=checkpoint_n[0]),
              hf_openai=dict(launches=hf_n["flash_fwd"]),
              cold_start=dict(launches={k: n["flash_fwd"]
@@ -8295,6 +8776,7 @@ def main() -> None:
              lora_serve=dict(launches={w: n["decode_attention"] for w, n in
                                        lora_train["serve"].items()}),
              rollout=dict(launches=rollout_n["decode_attention"]),
+             flywheel=dict(launches=fly_n["decode_attention"]),
              hf_openai=dict(launches=hf_n["decode_attention"]),
              cold_start=dict(launches={k: n["decode_attention"]
                                        for k, n in cold_n.items()}),
@@ -8332,6 +8814,7 @@ def main() -> None:
              replaces="kubetorch_tpu/ops/attention.py:140",
              launches=train_n[1], path="training", **train_k["dq"],
              **train_launches(1), checkpoint=dict(launches=checkpoint_n[1]),
+             flywheel=dict(launches=fly_n["flash_bwd_dq"]),
              vit=dict(launches=vit["launches"][1],
                       per_train_step=vit["per_train_step"][1],
                       **vit_k["dq"]),
@@ -8346,6 +8829,7 @@ def main() -> None:
              replaces="kubetorch_tpu/ops/attention.py:180",
              launches=train_n[2], path="training", **train_k["dkv"],
              **train_launches(2), checkpoint=dict(launches=checkpoint_n[2]),
+             flywheel=dict(launches=fly_n["flash_bwd_dkv"]),
              vit=dict(launches=vit["launches"][2],
                       per_train_step=vit["per_train_step"][2],
                       **vit_k["dkv"]),
@@ -8381,6 +8865,8 @@ def main() -> None:
              verify_window=q4_window),
     ]
     print(f"spec: {json.dumps(spec)}", flush=True)
+    print(f"flywheel: {json.dumps(lora_train['flywheel'])} card={card}",
+          flush=True)
     print(f"hf_openai: {json.dumps(hf)} card={card}", flush=True)
     print(f"train: {json.dumps(dict(llama_1b=train, **trains))} card={card}",
           flush=True)

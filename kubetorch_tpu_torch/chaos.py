@@ -1,22 +1,27 @@
-"""The warm template's kill plans, the port's copy of
-``template_kill_plan`` and ``joiner_kill_plan`` in ``kubetorch_tpu/chaos.py``.
+"""The process kill plans, the port's copy of ``template_kill_plan``,
+``joiner_kill_plan`` and ``flywheel_kill_plan`` in
+``kubetorch_tpu/chaos.py``.
 
 A ``KT_CHAOS`` spec is a comma-separated list of tokens
 ``VERB[:ARG][@SUFFIX][%PROB][*COUNT]``. The parser below is the JAX
 package's, token for token: every verb it knows parses (so a spec that
 also schedules HTTP or store faults gives the same plans), a malformed
 spec is reported and yields no plan, and for the op-index verbs the
-``@``-suffix is a 0-based op index (default 0). The port consumes two
-verbs, both process-fatal:
+``@``-suffix is a 0-based op index (default 0). The port consumes three
+verbs, each process-fatal:
 
 - ``kill-template[:SIG]@N``: the template self-delivers SIG (default 9)
   at its N-th fork request, before forking;
 - ``kill-joiner[:SIG]@N``: forked replica N self-delivers SIG mid-boot,
-  after attaching the weights and before serving.
+  after attaching the weights and before serving;
+- ``kill-flywheel[:SIG]@N``: a flywheel trainer self-delivers SIG before
+  its N-th ledger poll (:func:`flywheel_kill_plan`). Only the trainer loop
+  reads this plan; no middleware does.
 
 With no spec given, ``KT_CHAOS`` is read, and ``KT_CHAOS_RANK`` scopes the
-plans to one ``RANK`` as in JAX. The HTTP middleware, the store verbs and
-the soak schedule stay in the JAX package.
+plans to one ``RANK`` as in JAX. The HTTP middleware, the store verbs
+(``drop-ack`` among them: the store server stays the fabric's) and the
+soak schedule stay in the JAX package.
 """
 
 from __future__ import annotations
@@ -231,3 +236,13 @@ def joiner_kill_plan(spec: Optional[str] = None) -> Dict[int, int]:
     (after the weight attach, before it reports ready)."""
     return {f.op_index: f.signal_no
             for f in _rank_faults("kill-joiner", spec)}
+
+
+def flywheel_kill_plan(spec: Optional[str] = None) -> Dict[int, int]:
+    """``{ledger-poll index -> signal}`` from the ``kill-flywheel`` verbs:
+    the flywheel trainer consults it before each cursor poll and
+    self-delivers the signal mid-harvest. The resumed trainer restores the
+    cursor state its last committed checkpoint names, so the batch that
+    died uncommitted re-polls and nothing is trained twice."""
+    return {f.op_index: f.signal_no
+            for f in _rank_faults("kill-flywheel", spec)}

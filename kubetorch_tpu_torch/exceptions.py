@@ -1,9 +1,10 @@
 """Typed exceptions of the port, copies of their counterparts in
 ``kubetorch_tpu/exceptions.py`` (``KubetorchError``, ``RolloutError``,
-``StaleStageEpochError``, the compile cache's ``AOTCacheMissError`` and
-``AOTCacheCorruptError``, ktsync's ``SyncError``, the data store's
-``DataStoreError``, ``StoreFullError``, ``RingEpochMismatch`` and
-``DataCorruptionError``, and ``CircuitOpenError``), with the same names, attributes and message texts,
+``StaleStageEpochError``, the flywheel cursor's ``StaleLeaseError``, the
+compile cache's ``AOTCacheMissError`` and ``AOTCacheCorruptError``,
+ktsync's ``SyncError``, the data store's ``DataStoreError``,
+``StoreFullError``, ``RingEpochMismatch`` and ``DataCorruptionError``, and
+``CircuitOpenError``), with the same names, attributes and message texts,
 so a caller can handle either package's refusal alike.
 :func:`rehydrate_exception` rebuilds one of these from the JSON body a
 store server sends with a 409 or a 507 (the JAX package's
@@ -65,6 +66,32 @@ class StaleStageEpochError(KubetorchError):
         self.stage = stage
         self.epoch = epoch
         self.current_epoch = current_epoch
+
+
+class StaleLeaseError(KubetorchError):
+    """An actor carried a fenced-off lease epoch.
+
+    The flywheel's trainer cursor (``flywheel/ledger.py``) takes a
+    store-held fencing epoch on ``acquire`` and re-reads it on every poll
+    and commit: a trainer whose epoch another trainer has since bumped is
+    refused with this error instead of folding records the new holder
+    folds too. (The JAX package raises it from its federation's placement
+    leases as well, with a ``region``.) The stale side's only valid move is
+    to stop; ``current_epoch``/``current_region`` name the lease that
+    actually holds."""
+
+    def __init__(self, message: str = "placement lease epoch is stale",
+                 workload: Optional[str] = None,
+                 region: Optional[str] = None,
+                 epoch: Optional[int] = None,
+                 current_epoch: Optional[int] = None,
+                 current_region: Optional[str] = None):
+        super().__init__(message)
+        self.workload = workload
+        self.region = region
+        self.epoch = epoch
+        self.current_epoch = current_epoch
+        self.current_region = current_region
 
 
 class AOTCacheMissError(KubetorchError):
@@ -168,7 +195,8 @@ class CircuitOpenError(KubetorchError):
 
 _REGISTRY = {cls.__name__: cls for cls in (
     KubetorchError, SyncError, DataStoreError, StoreFullError,
-    RingEpochMismatch, DataCorruptionError, CircuitOpenError)}
+    RingEpochMismatch, DataCorruptionError, CircuitOpenError,
+    StaleLeaseError)}
 
 
 def rehydrate_exception(data: Dict[str, Any]) -> BaseException:

@@ -12,7 +12,9 @@ counterparts of ``kubetorch_tpu/serving``'s device-facing helpers:
   duration, exported as a Chrome trace;
 - ``warm_template`` and ``shm_ring``: a replica's cold start, a template
   process that stages the weights in one shared segment once and forks
-  replicas that boot through the compile cache (``serve/aot_cache.py``).
+  replicas that boot through the compile cache (``serve/aot_cache.py``);
+- ``elastic``: the drain half of the elastic contract (SIGTERM flips a
+  flag a training loop polls, to flush and yield inside its grace).
 
 Nothing here is imported by the fabric itself (its pod server is the JAX
 package's); user code in a rank calls these.

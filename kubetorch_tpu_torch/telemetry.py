@@ -16,8 +16,11 @@ metric names and exposition text:
   the ``kt_train_mfu`` gauge), ``pipeline_metrics()`` (the elastic
   pipeline's ``kt_pipeline_*`` family) and ``cold_start_metrics()`` (a
   replica's boot by phase, ``kt_cold_start_*``, and the compile cache's
-  ``kt_aot_cache_total{result}``) and ``xregion_metrics()`` (the
-  cross-region replicator's ``kt_store_xregion_*{region}``).
+  ``kt_aot_cache_total{result}``), ``xregion_metrics()`` (the
+  cross-region replicator's ``kt_store_xregion_*{region}``) and
+  ``flywheel_metrics()`` (the continuous-learning loop's
+  ``kt_flywheel_*``: appends, consumes and dedups by service, gate
+  verdicts, harvest phases, per-stage lag).
 
 And spans (``span``, ``current_span``, ``current_header``, ``add_event``,
 the ``TraceRing`` ``RING``) with the JAX package's wire format: the
@@ -417,6 +420,56 @@ def xregion_metrics() -> Dict[str, Union[Counter, Gauge]]:
                 "node loss)", labels=("region",)),
         }
     return _XREGION_METRICS
+
+
+_FLYWHEEL_METRICS: Optional[Dict[str, Union[Counter, Gauge, Histogram]]] = None
+
+
+def flywheel_metrics() -> Dict[str, Union[Counter, Gauge, Histogram]]:
+    """Get-or-create the ``kt_flywheel_*`` family under the JAX package's
+    names and help texts: ``flywheel/ledger.py`` counts appends, consumes
+    and dedups, the harvester times its phases, and the promoter counts
+    gate verdicts and sets each stage's lag."""
+    global _FLYWHEEL_METRICS
+    if _FLYWHEEL_METRICS is None:
+        _FLYWHEEL_METRICS = {
+            "appended": counter(
+                "kt_flywheel_appended_total",
+                "Feedback records durably acked into the ledger "
+                "(counted only after the segment's quorum write)",
+                labels=("service",)),
+            "consumed": counter(
+                "kt_flywheel_consumed_total",
+                "Fresh feedback records handed to the trainer by the "
+                "cursor (post-dedup)",
+                labels=("service",)),
+            "deduped": counter(
+                "kt_flywheel_deduped_total",
+                "Duplicate records dropped by the cursor's hash dedup "
+                "(at-least-once retries, re-polled segments)",
+                labels=("service",)),
+            "gate": counter(
+                "kt_flywheel_gate_total",
+                "Promotion-gate verdicts (promoted, rolled_back, "
+                "gate_rejected)",
+                labels=("verdict",)),
+            "harvest": histogram(
+                "kt_flywheel_harvest_seconds",
+                "Harvester wall-clock by phase (harvest = one training "
+                "step on harvested capacity, vacate = flush-and-yield, "
+                "idle = waiting for SLO headroom)",
+                labels=("phase",),
+                buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 2.5, 5,
+                         10, 30)),
+            "lag": gauge(
+                "kt_flywheel_lag_seconds",
+                "Freshness of each flywheel stage (collect = newest "
+                "acked append, train = newest committed cursor state, "
+                "publish = newest rollout manifest, promote = newest "
+                "fleet-phase promotion)",
+                labels=("stage",)),
+        }
+    return _FLYWHEEL_METRICS
 
 
 # ---------------------------------------------------------------------------

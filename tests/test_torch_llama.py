@@ -241,6 +241,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     # every module of the package, the newest included
     for module in ("models/resnet.py", "parallel/ring_attention.py",
+                   "flywheel/ledger.py", "flywheel/harvester.py",
+                   "flywheel/promoter.py", "serving/elastic.py",
                    "serve/spec_engine.py", "serve/aot_cache.py",
                    "serving/warm_template.py", "serving/shm_ring.py",
                    "chaos.py", "data_store/durability.py"):
